@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`src/repro_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Drives the port's main path -- keys -> `Hasher` -> fused K-hash CUDA kernels
+-> Bloom/dedup admission -- at a deployment's scale and checks every result:
+
+1. device: the card's name and power limit; nvcc builds both kernels from
+   the sources in this checkout (timed, with ptxas' register report);
+2. kernels vs plain versions: every engine family, fixed and ragged rows
+   (L = 0, odd L, L at the thread-stride edge), K in {1, 3, 9, 20}, mod_m in
+   {none, 1, 2^20, 4097, 2^32-1}: `torch.equal` with the plain PyTorch
+   version on the card, and equality with the numpy host twin on a row
+   subsample (an oracle that needs neither the kernels nor JAX);
+3. pure path at full width: B = 65,536 x N = 1,024 u32 tokens on the card,
+   `Hasher(K=9, out_bits=64)`: `__call__`, `probe_indices(m)` for the m of
+   the Bloom filter below, `shard_ids(64)`, for multilinear and
+   gf_multilinear, one kernel launch per call;
+4. admission: `BloomFilter(n_items=10**8, fp_rate=1e-3)` (m ~ 1.44e9 bits,
+   k = 9) for multilinear and gf_multilinear, `ExactDedup` and
+   `HashPipeline.admit_batch`, over 32 batches of 8,192 documents of 64-2,048
+   tokens (vocabulary 50,000) with 10 % planted exact repeats: one launch per
+   batch, every planted repeat rejected, the admitted count plausible;
+5. measurements: phase 3's Hasher outputs against the plain version and
+   each surface's time; each kernel's time (CUDA events, warm repeats)
+   beside its bound and its plain version's time, at the shapes of phases
+   3 and 4.
+
+The launch counts are set to 0 before phase 3 and read after phase 4: that
+run is the main path. Launches made to compare or to time come after.
+Any failed check exits non-zero. The last line is the JSON device record.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0x5EED
+# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
+# memory 3.35 TB/s; 32-bit integer instructions 64 lanes/SM x 132 SMs x 1.98 GHz.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+FAMILIES = ("multilinear", "multilinear_2x2", "multilinear_hm",
+            "gf_multilinear", "gf_multilinear_hm")
+KERNELS = {
+    "multihash": ("src/repro_torch/kernels/csrc/multihash.cu",
+                  "src/repro/kernels/multihash.py:69"),
+    "gf_multihash": ("src/repro_torch/kernels/csrc/gf_multihash.cu",
+                     "src/repro/kernels/gf_multihash.py:84"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def phase(name: str):
+    """Context manager printing a phase's wall time."""
+    class _Phase:
+        def __enter__(self):
+            print(f"== {name}", flush=True)
+            self.t0 = time.perf_counter()
+
+        def __exit__(self, *exc):
+            if exc[0] is None:
+                print(f"== {name}: {time.perf_counter() - self.t0:.3f} s wall",
+                      flush=True)
+    return _Phase()
+
+
+class Port:
+    """The port's modules, imported once the card is known to exist."""
+
+    def __init__(self):
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+
+        from repro_torch.core import hostref, limbs
+        from repro_torch.data import BloomFilter, ExactDedup, HashPipeline, PipelineConfig
+        from repro_torch.hash import Hasher, HashSpec
+        from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import gf_multihash as gfmh
+        from repro_torch.kernels import multihash as mhk
+
+        self.torch, self.hostref, self.limbs = torch, hostref, limbs
+        self.BloomFilter, self.ExactDedup = BloomFilter, ExactDedup
+        self.HashPipeline, self.PipelineConfig = HashPipeline, PipelineConfig
+        self.Hasher, self.HashSpec = Hasher, HashSpec
+        self.build, self.ops, self.ref = _build, ops, ref
+        self.wrappers = {"multihash": mhk, "gf_multihash": gfmh}
+
+    def kernel_of(self, family: str) -> str:
+        return "gf_multihash" if family.startswith("gf_") else "multihash"
+
+    def counts(self) -> dict:
+        return {k: m.launch_count() for k, m in self.wrappers.items()}
+
+    def reset_counts(self) -> None:
+        for m in self.wrappers.values():
+            m.reset_count()
+
+    def plain(self, family, *args, **kw):
+        fn = (self.ref.gf_multihash_ref if family.startswith("gf_")
+              else self.ref.multihash_ref)
+        return fn(*args, family=family, **kw)
+
+
+def one_launch(port: Port, family: str, fn):
+    """Run fn(); require exactly one launch of the family's kernel (on the
+    card) and one engine dispatch."""
+    c0, d0 = port.counts(), port.ops.launch_count()
+    out = fn()
+    c1 = port.counts()
+    want = dict(c0)
+    if port.torch.cuda.is_available():
+        want[port.kernel_of(family)] += 1
+    check(c1 == want and port.ops.launch_count() == d0 + 1,
+          f"{family}: expected one launch, counts {c0} -> {c1}")
+    return out
+
+
+def timed(port: Port, fn, repeats: int) -> float:
+    """Mean milliseconds of fn() over warm repeats (CUDA events)."""
+    torch = port.torch
+    fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(repeats):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats
+
+
+def live_work(lens, N: int) -> tuple[int, int]:
+    """(tokens the kernel loads, columns it hashes), summed over the rows.
+    A row of code L >= 0 loads its L tokens and hashes L + 1 columns (the
+    sentinel is made, not loaded); a row of code < 0 loads and hashes
+    lm = -code - 1. No row loads past the N columns it has."""
+    lens = np.asarray(lens, np.int64)
+    lm = np.where(lens >= 0, lens, -lens - 1)
+    return int(np.minimum(lm, N).sum()), int((lm + (lens >= 0)).sum())
+
+
+def bound(kernel: str, B: int, N: int, W: int, K: int,
+          lens) -> tuple[float, str]:
+    """Least time (ms) for the work on the card: the larger of the bytes
+    the call must move (the live tokens of `live_work`, keys and codes
+    read once; slots written once) over the memory rate, and its 32-bit
+    integer operations over the instruction rate: 2 per hashed column and
+    function for the integer kernel (one 64x32-bit multiply-add), 64 for
+    the carry-less one (32 shift-xor steps on a 64-bit value)."""
+    loaded, hashed = live_work(lens, N)
+    nbytes = loaded * 4 + K * (W + 1) * 8 + B * 4 + B * K * 2 * 8
+    per = 64 if kernel == "gf_multihash" else 2
+    ops = per * hashed * K
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------------
+# phase 1
+# --------------------------------------------------------------------------
+
+def device_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels(port: Port) -> dict:
+    t0 = time.perf_counter()
+    log = port.build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.3f} s wall "
+          f"(nvcc per kernel: "
+          + ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in log.items())
+          + ")")
+    for name, entry in log.items():
+        for line in entry["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    for name in port.build.KERNELS:
+        port.build.load(name)
+    return log
+
+
+# --------------------------------------------------------------------------
+# phase 2
+# --------------------------------------------------------------------------
+
+def kernel_vs_plain(port: Port, device, B=256, N=300) -> dict:
+    """Every family x fixed/ragged x K x mod_m: kernel == plain == host twin.
+    Returns {kernel: max |kernel - plain|}."""
+    torch = port.torch
+    g = np.random.default_rng(SEED)
+    edge = [0, 1, 2, 3, 127, 128, 129, 255, 256, 257, N - 1, N]
+    errs = {k: 0 for k in KERNELS}
+    for K in (1, 3, 9, 20):
+        W = N + 2  # even, and room for the sentinel of a full row
+        toks = g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32)
+        keys_u64 = g.integers(0, 2**64, (K, W + 1), dtype=np.uint64)
+        ragged = np.array(edge + list(g.integers(0, N + 1, B - len(edge))), np.int32)
+        ragged[-2:] = (-1, 0)  # the two padding codes
+        t_toks = torch.from_numpy(toks.view(np.int32)).to(device)
+        t_keys = torch.from_numpy(keys_u64.view(np.int64)).to(device)
+        sub = np.arange(0, B, 7)
+        toks_w = np.zeros((len(sub), W), np.uint32)
+        toks_w[:, :N] = toks[sub]
+        for lens in (np.full(B, -(N + 1), np.int32), ragged):
+            t_lens = torch.from_numpy(lens).to(device)
+            for family in FAMILIES:
+                gf = family.startswith("gf_")
+                if gf:
+                    surf = port.hostref.gf_multilinear_multi_np(
+                        toks_w, lens[sub],
+                        (keys_u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                        family=family)
+                else:
+                    surf = port.hostref.multilinear_multi_np(
+                        toks_w, lens[sub], keys_u64, family=family)
+                for mod_m in (None, 1, 2**20, 4097, 2**32 - 1):
+                    got = one_launch(port, family, lambda: port.ops.multihash(
+                        t_toks, t_keys, t_lens, family=family, mod_m=mod_m,
+                        width=W))
+                    want = port.plain(family, t_toks, t_keys, t_lens,
+                                      mod_m=mod_m, width=W)
+                    torch.cuda.synchronize()
+                    what = f"{family} K={K} mod_m={mod_m}"
+                    check(torch.equal(got, want), f"kernel != plain: {what}")
+                    name = port.kernel_of(family)
+                    errs[name] = max(errs[name],
+                                     int((got - want).abs().max().item()))
+                    s = got[torch.from_numpy(sub).to(device)].cpu().numpy()
+                    hi = (surf >> np.uint64(32)).astype(np.int64)
+                    if mod_m is None:
+                        host0 = hi
+                        host1 = (surf & np.uint64(0xFFFFFFFF)).astype(np.int64)
+                    else:
+                        host0 = (surf % np.uint64(mod_m)).astype(np.int64)
+                        host1 = hi
+                    check(np.array_equal(s[..., 0], host0)
+                          and np.array_equal(s[..., 1], host1),
+                          f"kernel != host twin: {what}")
+    print(f"kernel == plain == host twin in {2 * 4 * len(FAMILIES) * 5} cases; "
+          f"max |kernel - plain| {errs}")
+    return errs
+
+
+# --------------------------------------------------------------------------
+# phases 3-4: the main path
+# --------------------------------------------------------------------------
+
+def bloom_m(n_items=10**8, fp_rate=1e-3) -> int:
+    return max(64, int(-n_items * math.log(fp_rate) / (math.log(2) ** 2)))
+
+
+def pure_path(port: Port, device, B: int, N: int, K: int) -> dict:
+    """Hasher surfaces at full width; returns the inputs and outputs."""
+    torch = port.torch
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    toks = torch.randint(-2**31, 2**31, (B, N), generator=gen,
+                         dtype=torch.int32, device=device)
+    m = bloom_m()
+    res = {"tokens": toks, "m": m}
+    for family in ("multilinear", "gf_multilinear"):
+        h = port.Hasher.from_spec(port.HashSpec(
+            family=family, n_hashes=K, out_bits=64, seed=SEED), max_len=N,
+            device=device)
+        slots = one_launch(port, family, lambda: h(toks))
+        probes = one_launch(port, family, lambda: h.probe_indices(toks, m))
+        shards = one_launch(port, family, lambda: h.shard_ids(toks, 64))
+        torch.cuda.synchronize()
+        check(tuple(slots.shape) == (B, K, 2) and tuple(probes.shape) == (B, K)
+              and tuple(shards.shape) == (B,), f"{family}: shapes")
+        check(bool(((probes >= 0) & (probes < m)).all())
+              and bool(((shards >= 0) & (shards < 64)).all())
+              and bool(((slots >= 0) & (slots < 2**32)).all()),
+              f"{family}: values out of range")
+        res[family] = {"hasher": h, "slots": slots, "probes": probes,
+                       "shards": shards}
+        print(f"{family}: __call__ {tuple(slots.shape)}, probe_indices(m={m}) "
+              f"{tuple(probes.shape)}, shard_ids(64) {tuple(shards.shape)}; "
+              f"shard loads min/max {int(torch.bincount(shards.long(), minlength=64).min())}"
+              f"/{int(torch.bincount(shards.long(), minlength=64).max())}")
+    return res
+
+
+def make_batches(n_batches: int, batch: int, lo: int, hi: int, vocab: int,
+                 dup_rate: float):
+    """Documents (vectorized seeded numpy) with planted exact repeats of
+    documents offered earlier (half from the batch before, half from
+    earlier in the same batch). Returns [(docs, planted mask)]."""
+    g = np.random.default_rng(SEED)
+    out, prev = [], None
+    for _ in range(n_batches):
+        lens = g.integers(lo, hi + 1, batch)
+        flat = g.integers(0, vocab, int(lens.sum()), dtype=np.uint32)
+        docs = np.split(flat, np.cumsum(lens)[:-1])
+        planted = g.random(batch) < dup_rate
+        planted[0] = planted[0] and prev is not None
+        from_prev = g.random(batch) < 0.5
+        for i in np.flatnonzero(planted):
+            if prev is not None and (from_prev[i] or i == 0):
+                docs[i] = prev[g.integers(batch)]
+            else:
+                docs[i] = docs[g.integers(i)]
+        out.append((docs, planted))
+        prev = docs
+    return out
+
+
+def admission(port: Port, device, batches, card: str) -> dict:
+    """Bloom (both families), ExactDedup and HashPipeline over the batches."""
+    n_docs = sum(len(d) for d, _ in batches)
+    n_tokens = sum(int(sum(len(x) for x in d)) for d, _ in batches)
+    n_planted = int(sum(p.sum() for _, p in batches))
+    report = {}
+
+    def drive(label, family, admit_batch, rejected):
+        admitted, t0 = 0, time.perf_counter()
+        for docs, planted in batches:
+            verdict = one_launch(port, family, lambda: admit_batch(docs))
+            rej = rejected(verdict)
+            check(bool(rej[planted].all()),
+                  f"{label}: a planted repeat was admitted")
+            admitted += int((~rej).sum())
+        dt = time.perf_counter() - t0
+        report[label] = {"docs_per_s": n_docs / dt, "tokens_per_s": n_tokens / dt,
+                         "seconds": dt, "admitted": admitted}
+        print(f"{label}: {n_docs} docs, {n_tokens} tokens in {dt:.3f} s: "
+              f"{n_docs / dt} docs/s, {n_tokens / dt} tokens/s ({card}); "
+              f"admitted {admitted} of {n_docs - n_planted} unique")
+        return admitted
+
+    for family in ("multilinear", "gf_multilinear"):
+        bf = port.BloomFilter(n_items=10**8, fp_rate=1e-3, family=family,
+                              device=device)
+        check(bf.k == 9 and bf.m == bloom_m(), "Bloom sizing")
+        admitted = drive(f"bloom/{family}", family, bf.check_and_add_batch,
+                         lambda v: ~v)
+        fill = 1 - math.exp(-bf.k * n_docs / bf.m)
+        fp_bound = max(5, 10 * n_docs * fill ** bf.k)
+        check(n_docs - n_planted - fp_bound <= admitted <= n_docs - n_planted,
+              f"bloom/{family}: implausible admitted count {admitted}")
+    ed = port.ExactDedup(device=device)
+    admitted = drive("exact_dedup/multilinear", "multilinear",
+                     ed.check_and_add_batch, lambda v: ~v)
+    check(admitted == n_docs - n_planted, "exact dedup: admitted count")
+    pipe = port.HashPipeline(port.PipelineConfig(
+        seq_len=2048, batch_size=8, n_shards=4, shard_id=0), device=device)
+    drive("pipeline/multilinear", "multilinear", pipe.admit_batch,
+          lambda routes: np.array([r == "dup" for r in routes]))
+    check(pipe.stats["docs"] == n_docs, "pipeline stats")
+    print(f"pipeline routes: {pipe.stats}")
+    return report
+
+
+# --------------------------------------------------------------------------
+# phase 5: measurements
+# --------------------------------------------------------------------------
+
+def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
+            card: str):
+    """Kernel vs plain version at the main path's shapes: equality, times
+    and bounds. Returns the `kernels` records and a table of rows."""
+    torch = port.torch
+    toks = pure["tokens"]
+    B, N = toks.shape
+    rows, records = [], {}
+    docs, _ = batch
+    from repro_torch.hash.hasher import _stack_ragged
+
+    dense, lens_b = _stack_ragged(docs)
+    t_dense = torch.from_numpy(dense.view(np.int32)).to(device)
+    t_lens_b = torch.from_numpy(lens_b.astype(np.int32)).to(device)
+    W_b = dense.shape[1] + 2 + (dense.shape[1] & 1)  # hash_batch's width
+    for family in ("multilinear", "gf_multilinear"):
+        name = port.kernel_of(family)
+        h = pure[family]["hasher"]
+        keys = h._keys_for_width(W_b)
+        W = N + 2 if N % 2 == 0 else N + 1
+        code = torch.full((B,), N, dtype=torch.int32, device=device)
+        # phase 3's Hasher surfaces against the plain version, then timed
+        res, m = pure[family], pure["m"]
+        plain = port.plain(family, toks, h.keys, code, width=W)
+        check(torch.equal(res["slots"], plain)
+              and torch.equal(res["shards"], port.limbs.mulhi32(
+                  plain[:, 0, 0], 64).to(torch.int32)),
+              f"{family}: __call__/shard_ids != plain version")
+        plain = port.plain(family, toks, h.keys, code, mod_m=m, width=W)
+        check(torch.equal(res["probes"], plain[..., 0]),
+              f"{family}: probe_indices != plain version")
+        del plain
+        for surface, fn in (("__call__", lambda: h(toks)),
+                            ("probe_indices", lambda: h.probe_indices(toks, m)),
+                            ("shard_ids", lambda: h.shard_ids(toks, 64))):
+            row = {"surface": surface, "family": family, "B": B, "N": N,
+                   "K": K, "ms": timed(port, fn, 20), "card": card}
+            rows.append(row)
+            print(json.dumps(row))
+        shapes = [("pure", toks, code, W, pure["m"]),
+                  ("pure-nomod", toks, code, W, None),
+                  ("admit-batch", t_dense, t_lens_b, W_b, None)]
+        for label, t, ln, width, mod_m in shapes:
+            run = lambda: port.ops.multihash(t, keys, ln, family=family,  # noqa: E731
+                                             mod_m=mod_m, width=width)
+            got = run()
+            want = port.plain(family, t, keys, ln, mod_m=mod_m, width=width)
+            check(torch.equal(got, want), f"{family} {label}: kernel != plain")
+            err = int((got - want).abs().max().item())
+            del got, want
+            ms = timed(port, run, 20)
+            plain_ms = timed(port, lambda: port.plain(
+                family, t, keys, ln, mod_m=mod_m, width=width), 2)
+            b_ms, b_by = bound(name, t.shape[0], t.shape[1], width, K,
+                               ln.cpu().numpy())
+            row = {"kernel": name, "family": family, "shape": label,
+                   "B": t.shape[0], "W": width, "K": K, "mod_m": mod_m,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "max_abs_err": err}
+            rows.append(row)
+            print(json.dumps(row))
+            if label == "pure":
+                records[name] = {
+                    "name": name, "route": "cuda", "source": KERNELS[name][0],
+                    "replaces": KERNELS[name][1], "launches": launches[name],
+                    "matches_plain": err == 0,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        # the host part of one admission batch beside its launch
+        bf_h = port.Hasher.from_spec(port.HashSpec(
+            family=family, n_hashes=K, out_bits=64, seed=SEED), device=device)
+        t0 = time.perf_counter()
+        bf_h.hash_batch(docs)
+        print(f"{family}: hash_batch of one admission batch (stack, upload, "
+              f"launch, download) {1e3 * (time.perf_counter() - t0):.3f} ms wall")
+    return [records[k] for k in KERNELS], rows
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    t_start = time.perf_counter()
+    try:
+        port = Port()
+        with phase("phase 1: device and build"):
+            card = device_line()
+            print(f"card: {card}")
+            build_kernels(port)
+        with phase("phase 2: kernels vs plain versions"):
+            kernel_vs_plain(port, device)
+        B, N, K = 65536, 1024, 9
+        with phase("batches (set-up)"):
+            batches = make_batches(32, 8192, 64, 2048, 50000, 0.10)
+        port.reset_counts()
+        with phase("phase 3: pure path at full width"):
+            pure = pure_path(port, device, B, N, K)
+        with phase("phase 4: admission"):
+            admit = admission(port, device, batches, card)
+        launches = port.counts()
+        print(f"main path launches: {launches}")
+        check(all(v > 0 for v in launches.values()),
+              "a kernel of the main path was never launched")
+        with phase("phase 5: measurements"):
+            kernels, rows = measure(port, device, pure, batches[0], K, launches,
+                                    card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke.json").write_text(json.dumps(
+            {"card": card, "rows": rows, "admission": admit,
+             "kernels": kernels}, indent=1))
+        print(f"total {time.perf_counter() - t_start:.3f} s wall; card {card}")
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    except SmokeFailure as exc:
+        print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""64-bit integer helpers on int64 tensors that carry u64 bits.
+
+PyTorch has no arithmetic on `torch.uint32`/`torch.uint64` on the CPU, so
+the port carries every 32-bit lane and every 64-bit accumulator in int64:
+
+- int64 `*` and `+` wrap mod 2^64, which is exactly the integer families'
+  accumulator ring;
+- `>>` on int64 is arithmetic (it copies the sign bit), so every right
+  shift is followed by a 32-bit mask;
+- `%` on int64 is floor-mod on the SIGNED value, so a u64 at or above 2^63
+  would reduce wrongly. `mod_u64` therefore works on 32-bit limbs, keeping
+  every intermediate below 2^63.
+
+The reference does this with (hi, lo) uint32 limb pairs and a 16-bit digit
+trick because the TPU has no 64-bit lanes (`repro.core.limbs`); the CUDA
+kernels use native `uint64_t` and `%` instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class ModPlan:
+    """A validated 32-bit modulus for `mod_u64` and the kernels' `mod_m`.
+
+    The reference's plan also carries a 96-bit Barrett reciprocal for its
+    32-bit limb arithmetic; the port needs none (the kernels use the native
+    u64 `%`, the plain version 16-bit Horner steps), so the plan is the
+    modulus and its power-of-two flag.
+    """
+
+    m: int
+    is_pow2: bool
+
+    @classmethod
+    def for_modulus(cls, m: int) -> "ModPlan":
+        m = int(m)
+        if not 1 <= m < 1 << 32:
+            raise ValueError(f"modulus {m} outside the 32-bit domain [1, 2^32)")
+        return cls(m=m, is_pow2=m & (m - 1) == 0)
+
+
+def as_plan(mod_m) -> "ModPlan | None":
+    """None, an int modulus or a `ModPlan` -> `ModPlan | None`."""
+    if mod_m is None or isinstance(mod_m, ModPlan):
+        return mod_m
+    return ModPlan.for_modulus(mod_m)
+
+
+def hi32(x: torch.Tensor) -> torch.Tensor:
+    """Top 32 bits of u64 values held in int64, as int64 in [0, 2^32)."""
+    return (x >> 32) & MASK32
+
+
+def lo32(x: torch.Tensor) -> torch.Tensor:
+    """Low 32 bits of u64 values held in int64, as int64 in [0, 2^32)."""
+    return x & MASK32
+
+
+def mod_u64(h: torch.Tensor, plan) -> torch.Tensor:
+    """u64 values (int64 bits) mod a 32-bit m -> int64 residues in [0, m).
+
+    Horner over 16-bit digits: r = hi mod m, then twice r = (r*2^16 + d) mod
+    m for the next 16-bit digit d of lo. Every intermediate is < m*2^16 +
+    2^16 < 2^48, so the signed `%` is exact.
+    """
+    plan = as_plan(plan)
+    if plan.is_pow2:
+        return h & (plan.m - 1)
+    m = plan.m
+    lo = lo32(h)
+    r = hi32(h) % m
+    r = ((r << 16) | (lo >> 16)) % m
+    return ((r << 16) | (lo & 0xFFFF)) % m
+
+
+def mulhi32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """High half of the 32x32 -> 64 product of u32 values a (int64) and b.
+
+    With a < 2^32 and 0 <= b < 2^31 the product stays below 2^63, so one
+    int64 multiply is exact (the reference's `limbs.mul32_full` high half).
+    """
+    if not 0 <= b < 1 << 31:
+        raise ValueError(f"multiplier {b} outside [0, 2^31)")
+    return (a * b) >> 32
+
+
+def unpack_bits32(x: torch.Tensor) -> torch.Tensor:
+    """(...,) u32 values (int64) -> (..., 32) int64 bit planes, LSB first."""
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    return (x[..., None] >> shifts) & 1

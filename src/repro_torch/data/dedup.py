@@ -1,0 +1,157 @@
+"""Dedup structures built on the paper's fingerprints: exact set + Bloom.
+
+The port of `repro.data.dedup`. The Bloom filter's k probe functions are k
+independent hashes of one `Hasher` (any engine family); batch admission
+hashes the whole batch in ONE fused kernel launch, single-item calls use
+the bit-identical numpy host path. The bit array and the exact seen-set
+stay on the host, as in the reference (`load_bits` takes the reference
+filter's words as they are).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from ..hash import Hasher, HashSpec
+
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1 items 7-8)"
+
+
+class BloomFilter:
+    """k-probe Bloom filter over variable-length token strings.
+
+    Probe indices are the family's full 64-bit surfaces mod m, so modulo
+    bias is ~m/2^64 even when m approaches 2^32.
+    """
+
+    def __init__(self, n_items: int, fp_rate: float = 1e-3, seed: int = 0xB100,
+                 family: str = "multilinear", device=None):
+        self.m = max(64, int(-n_items * math.log(fp_rate) / (math.log(2) ** 2)))
+        self.k = max(1, int(self.m / n_items * math.log(2)))
+        self.bits = np.zeros((self.m + 63) // 64, np.uint64)
+        self.hasher = Hasher.from_spec(HashSpec(
+            family=family, n_hashes=self.k, out_bits=64,
+            variable_length=True, seed=seed), device=device)
+
+    def load_bits(self, bits: np.ndarray) -> None:
+        """Replace the bit array with another filter's words (same m)."""
+        bits = np.asarray(bits)
+        if bits.dtype != np.uint64 or bits.shape != self.bits.shape:
+            raise ValueError(f"bits must be {self.bits.shape} uint64, got "
+                             f"{bits.shape} {bits.dtype}")
+        self.bits = bits.copy()
+
+    def _hashes(self, items, backend=None) -> np.ndarray:
+        """(B, k) uint64 surfaces -- ONE fused launch for the whole batch."""
+        return self.hasher.hash_batch(items, backend=backend)
+
+    def _probes(self, items) -> np.ndarray:
+        return (self._hashes(items) % np.uint64(self.m)).astype(np.int64)
+
+    def _indices(self, item) -> np.ndarray:
+        """(k,) probe indices for one item (numpy host path)."""
+        h = self._hashes([np.atleast_1d(item)], backend="host")[0]
+        return (h % np.uint64(self.m)).astype(np.int64)
+
+    def _set(self, idx: np.ndarray) -> None:
+        np.bitwise_or.at(self.bits, idx // 64,
+                         np.uint64(1) << (idx.astype(np.uint64) % np.uint64(64)))
+
+    def _test(self, idx: np.ndarray) -> np.ndarray:
+        word = self.bits[idx // 64] >> (idx.astype(np.uint64) % np.uint64(64))
+        return (word & np.uint64(1)).astype(bool)
+
+    def add(self, item) -> None:
+        self._set(self._indices(item))
+
+    def __contains__(self, item) -> bool:
+        return bool(self._test(self._indices(item)).all())
+
+    def add_batch(self, items) -> None:
+        """Admit a batch of items with a single k-probe hash launch."""
+        if len(items) == 0:
+            return
+        self._set(self._probes(items).ravel())
+
+    def contains_batch(self, items) -> np.ndarray:
+        """(B,) bool membership for a batch -- one launch."""
+        if len(items) == 0:
+            return np.zeros(0, bool)
+        idx = self._probes(items)
+        return self._test(idx.ravel()).reshape(idx.shape).all(axis=1)
+
+    def check_and_add_batch(self, items) -> np.ndarray:
+        """(B,) bool admission mask (True = newly admitted), exact in
+        arrival order: item i is tested against the pre-batch bits plus the
+        bits set by the items admitted before it, so an in-batch duplicate
+        rejects. One fused hash launch; the sequential test/set touches only
+        the host bit words."""
+        if len(items) == 0:
+            return np.zeros(0, bool)
+        idx = self._probes(items)
+        out = np.zeros(len(idx), bool)
+        for i, row in enumerate(idx):
+            if not self._test(row).all():
+                self._set(row)
+                out[i] = True
+        return out
+
+
+class ExactDedup:
+    """64-bit fingerprint set. Collision probability for N docs is
+    ~N^2 / 2^65 (strong universality): negligible below ~10^8 docs.
+
+    `mesh=` (sharded fingerprinting) and `approx_items=` (Bloom authority)
+    are not ported yet.
+    """
+
+    def __init__(self, seed: int = 0xDED0, device=None, mesh=None,
+                 approx_items: int | None = None):
+        if mesh is not None or approx_items is not None:
+            raise NotImplementedError(f"ExactDedup(mesh=, approx_items=): "
+                                      f"{_NOT_PORTED}")
+        self.hasher = Hasher.from_spec(HashSpec(
+            family="multilinear", n_hashes=1, out_bits=64,
+            variable_length=True, seed=seed), device=device)
+        self.seen: set[int] = set()
+
+    def _fingerprints(self, items, backend=None) -> np.ndarray:
+        """(B,) uint64 variable-length fingerprints, one launch per batch."""
+        return self.hasher.hash_batch(items, backend=backend)[:, 0]
+
+    def check_and_add(self, tokens) -> bool:
+        """True if new (admitted), False if duplicate."""
+        fp = int(self._fingerprints([np.atleast_1d(tokens)], backend="host")[0])
+        if fp in self.seen:
+            return False
+        self.seen.add(fp)
+        return True
+
+    def check_and_add_batch(self, items) -> np.ndarray:
+        """(B,) bool admission mask; duplicates WITHIN the batch keep only
+        their first occurrence. One hash launch for the whole batch."""
+        if len(items) == 0:
+            return np.zeros(0, bool)
+        return self._admit(self._fingerprints(items))
+
+    def _admit(self, fps) -> np.ndarray:
+        """Arrival order: first occurrence (in the batch or before) wins."""
+        out = np.zeros(len(fps), bool)
+        for i, fp in enumerate(map(int, fps)):
+            if fp not in self.seen:
+                self.seen.add(fp)
+                out[i] = True
+        return out
+
+    def add_documents(self, docs, *, long_words: int = 1 << 12) -> np.ndarray:
+        """(B,) bool admission mask over documents shorter than
+        `long_words` (one batched launch). Longer documents take the tree
+        fingerprint route, which is not ported yet."""
+        docs = [np.asarray(d, np.uint32).reshape(-1) for d in docs]
+        if len(docs) == 0:
+            return np.zeros(0, bool)
+        if any(len(d) >= long_words for d in docs):
+            raise NotImplementedError(f"tree fingerprints for documents of "
+                                      f">= {long_words} words: {_NOT_PORTED}")
+        return self._admit(self._fingerprints(docs))

@@ -1,0 +1,117 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles into its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), for `sm_90a`,
+into `build/repro_torch_kernels/` at the repository root. The library name
+carries a digest of the source and the flags, so an edited source is
+rebuilt and a current one is reused. All stale sources compile at once,
+one nvcc process each. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+from . import autotune
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS = ("multihash", "gf_multihash")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Every kernel exports one C function of this signature:
+# int repro_<name>(tokens, keys, lens, out, B, N, W, K, ldk, pairwise, mod_m,
+#                  stream) returning cudaGetLastError() after its launch.
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: name -> {"seconds": wall time of its nvcc run, "ptxas": nvcc's -v output}
+BUILD_LOG: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _flags() -> list[str]:
+    return NVCC_FLAGS + autotune.nvcc_defines() + [f"-I{CSRC}"]
+
+
+def library_path(name: str) -> Path:
+    """Where `name`'s library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):  # headers are shared by both
+        h.update(src.name.encode() + src.read_bytes())
+    h.update(name.encode() + " ".join(_flags()).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, dict]:
+    """Compile every kernel whose library is missing, all in parallel."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNELS:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return BUILD_LOG
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, f"repro_{name}")
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, tokens, keys, lens, out, *, N: int, W: int,
+           pairwise: bool, mod_m: int) -> None:
+    """Launch kernel `name` on the current stream of `tokens`' device."""
+    import torch
+
+    fn = getattr(load(name), f"repro_{name}")
+    B, K = out.shape[0], out.shape[1]
+    with torch.cuda.device(tokens.device):
+        stream = torch.cuda.current_stream(tokens.device).cuda_stream
+        err = fn(tokens.data_ptr(), keys.data_ptr(), lens.data_ptr(),
+                 out.data_ptr(), B, N, W, K, keys.stride(0), int(pairwise),
+                 mod_m, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

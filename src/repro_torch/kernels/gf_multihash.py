@@ -1,0 +1,51 @@
+"""Wrapper of the fused carry-less multi-hash CUDA kernel
+(`csrc/gf_multihash.cu`).
+
+Replaces the reference's Pallas `repro.kernels.gf_multihash.
+gf_multihash_blocks` for the GF(2^32) families (gf_multilinear,
+gf_multilinear_hm), which use the low 32 bits of each key.
+Operand layout and slots: see `kernels.ref`. The output is (B, K, 2) int64
+holding u32 values.
+
+A CUDA tensor launches the kernel (and adds one to `launch_count()`); a CPU
+tensor runs the plain version `ref.gf_multihash_ref`. Nothing else falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.limbs import as_plan
+from . import _build, ref
+
+_LAUNCHES = [0]
+
+
+def launch_count() -> int:
+    """Kernel launches since the last `reset_count()` (CUDA only)."""
+    return _LAUNCHES[0]
+
+
+def reset_count() -> None:
+    _LAUNCHES[0] = 0
+
+
+def gf_multihash(tokens, keys, lens, *, family="gf_multilinear",
+                 mod_m=None, width=None):
+    """K carry-less hashes of every row of `tokens` -> (B, K, 2) int64 slots."""
+    if tokens.device.type == "cpu":
+        return ref.gf_multihash_ref(tokens, keys, lens, family=family,
+                                    mod_m=mod_m, width=width)
+    if tokens.device.type != "cuda":
+        raise ValueError(f"no gf_multihash kernel for device {tokens.device}")
+    B, N, K, W = ref.engine_shapes(tokens, keys, lens, width, family)
+    if family not in ref.GF_FAMILIES:
+        raise ValueError(f"{family!r} is not a carry-less engine family")
+    plan = as_plan(mod_m)
+    out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
+    if B == 0:
+        return out
+    _build.launch("gf_multihash", tokens, keys, lens, out, N=N, W=W,
+                  pairwise=family in ref.PAIRWISE,
+                  mod_m=0 if plan is None else plan.m)
+    _LAUNCHES[0] += 1
+    return out

@@ -1,0 +1,162 @@
+"""Plain PyTorch versions of the fused multi-hash kernels.
+
+`multihash_ref` and `gf_multihash_ref` compute exactly what the CUDA
+kernels in `csrc/` compute, with ordinary tensor operations. They run the
+CPU path of `kernels.multihash.multihash` / `kernels.gf_multihash.
+gf_multihash` and are what `chip_smoke.py` holds each kernel against on
+the card. They follow the reference's oracles (`repro.kernels.ref.
+multihash_ref`, `gf_multihash_ref`) and its length-code algebra
+(`repro.kernels.multihash._mask_tile`) operation for operation, on int64
+tensors that carry u32 lanes and u64 accumulators (see `core.limbs`).
+
+Engine layout shared by the plain versions and the kernels:
+
+- tokens: (B, N) int32 holding u32 bits, C-contiguous;
+- keys:   (K, >= W+1) int64 holding u64 key bits; column 0 is each
+  function's m1, column 1 + i multiplies token i (the carry-less families
+  use the low 32 bits);
+- lens:   (B,) int32 length codes (`core.hostref.encode_lengths`): code >= 0
+  is a variable-length row of L tokens (sentinel 1 at position L), code < 0
+  a fixed-length row of -code-1 tokens; padding rows use -1 or 0;
+- width:  W >= N columns are hashed; tokens past N read as 0, so callers
+  never copy tokens to pad them to the sentinel/even width;
+- output: (B, K, 2) int64 holding u32 values in the reference's slots:
+  (hash32, lo) for the integer families, (hash32, acc_hi) for the carry-less
+  ones; with `mod_m`, (surface mod m, hash32).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core import gf as gf_core
+from ..core.limbs import MASK32, as_plan, hi32, lo32, mod_u64
+
+INT_FAMILIES = ("multilinear", "multilinear_2x2", "multilinear_hm")
+GF_FAMILIES = ("gf_multilinear", "gf_multilinear_hm")
+PAIRWISE = ("multilinear_hm", "gf_multilinear_hm")
+
+
+def engine_shapes(tokens, keys, lens, width, family):
+    """Validate the engine operands; returns (B, N, K, W)."""
+    if tokens.dtype != torch.int32 or tokens.dim() != 2:
+        raise TypeError(f"tokens must be (B, N) int32, got {tuple(tokens.shape)} "
+                        f"{tokens.dtype}")
+    if keys.dtype != torch.int64 or keys.dim() != 2:
+        raise TypeError(f"keys must be (K, W+1) int64, got {tuple(keys.shape)} "
+                        f"{keys.dtype}")
+    B, N = tokens.shape
+    K = keys.shape[0]
+    W = N if width is None else int(width)
+    if lens.dtype != torch.int32 or tuple(lens.shape) != (B,):
+        raise TypeError(f"lens must be ({B},) int32, got {tuple(lens.shape)} "
+                        f"{lens.dtype}")
+    if not (tokens.device == keys.device == lens.device):
+        raise ValueError("tokens, keys and lens must be on one device")
+    if not (tokens.is_contiguous() and keys.stride(1) == 1
+            and lens.is_contiguous()):
+        raise ValueError("tokens, lens and key rows must be contiguous")
+    if K < 1:
+        raise ValueError("need at least one key row")
+    if W < N or keys.shape[1] < W + 1:
+        raise ValueError(f"width {W} must cover the {N} token columns and "
+                         f"fit the {keys.shape[1] - 1} positional keys")
+    if family in PAIRWISE and W % 2:
+        raise ValueError(f"{family} pairs lanes: width {W} must be even")
+    if family not in INT_FAMILIES + GF_FAMILIES:
+        raise ValueError(f"unknown engine family {family!r}")
+    return B, N, K, W
+
+
+def mask_lengths(tokens: torch.Tensor, lens: torch.Tensor, width: int):
+    """(tok_eff (B, W) int64, live (B, W) bool) under the length codes.
+
+    tokens at or past lm read 0 (and past N, where there are none), position
+    lm reads the sentinel 1 on variable-length rows, and key lanes at or
+    past kend = even(lm + is_var) are dead, so HM pair terms vanish there.
+    """
+    tok = tokens.to(torch.int64) & MASK32
+    tok = F.pad(tok, (0, width - tok.shape[1]))
+    col = torch.arange(width, dtype=torch.int64, device=tok.device)[None, :]
+    code = lens.to(torch.int64)[:, None]
+    is_var = code >= 0
+    lm = torch.where(is_var, code, -code - 1)
+    tok_eff = torch.where(col < lm, tok, (is_var & (col == lm)).to(torch.int64))
+    end = lm + is_var.to(torch.int64)
+    kend = end + (end & 1)
+    return tok_eff, col < kend
+
+
+def xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """(B, W) int64 -> (B,) xor of each row (pairwise folds; xor is exact
+    in any order)."""
+    if x.shape[1] == 0:
+        return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    while x.shape[1] > 1:
+        if x.shape[1] & 1:
+            x = F.pad(x, (0, 1))
+        x = x[:, 0::2] ^ x[:, 1::2]
+    return x[:, 0]
+
+
+def multihash_ref(tokens, keys, lens, *, family="multilinear", mod_m=None,
+                  width=None):
+    """K integer Multilinear hashes of every row -> (B, K, 2) int64 slots.
+
+    acc = m1 + sum key * tok mod 2^64 (HM: sum (k + s)(k' + s') over lane
+    pairs); slots (acc >> 32, acc & 0xFFFFFFFF), or with `mod_m`
+    (acc mod m, acc >> 32).
+    """
+    B, N, K, W = engine_shapes(tokens, keys, lens, width, family)
+    if family not in INT_FAMILIES:
+        raise ValueError(f"{family!r} is not an integer engine family")
+    plan = as_plan(mod_m)
+    tok, live = mask_lengths(tokens, lens, W)
+    out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
+    for k in range(K):
+        kp = torch.where(live, keys[k, 1:W + 1][None, :], 0)
+        if family == "multilinear_hm":
+            prod = (kp[:, 0::2] + tok[:, 0::2]) * (kp[:, 1::2] + tok[:, 1::2])
+        else:
+            prod = kp * tok
+        acc = prod.sum(dim=1) + keys[k, 0]
+        if plan is None:
+            out[:, k, 0] = hi32(acc)
+            out[:, k, 1] = lo32(acc)
+        else:
+            out[:, k, 0] = mod_u64(acc, plan)
+            out[:, k, 1] = hi32(acc)
+    return out
+
+
+def gf_multihash_ref(tokens, keys, lens, *, family="gf_multilinear",
+                     mod_m=None, width=None):
+    """K carry-less GF(2^32) hashes of every row -> (B, K, 2) int64 slots.
+
+    acc = m1_lo xor (xor of clmul(key_lo, tok)) (HM: clmul(k ^ s, k' ^ s')
+    over lane pairs); h32 = Barrett(acc) mod p(x); slots (h32, acc >> 32),
+    or with `mod_m` (((h32 << 32) | acc_hi) mod m, h32).
+    """
+    B, N, K, W = engine_shapes(tokens, keys, lens, width, family)
+    if family not in GF_FAMILIES:
+        raise ValueError(f"{family!r} is not a carry-less engine family")
+    plan = as_plan(mod_m)
+    tok, live = mask_lengths(tokens, lens, W)
+    out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
+    for k in range(K):
+        kp = torch.where(live, keys[k, 1:W + 1][None, :] & MASK32, 0)
+        if family == "gf_multilinear_hm":
+            prod = gf_core.clmul32(kp[:, 0::2] ^ tok[:, 0::2],
+                                   kp[:, 1::2] ^ tok[:, 1::2])
+        else:
+            prod = gf_core.clmul32(kp, tok)
+        acc = xor_reduce(prod) ^ (keys[k, 0] & MASK32)
+        h32 = gf_core.barrett_reduce(acc)
+        acc_hi = acc >> 32  # acc < 2^63: no sign bits to mask
+        if plan is None:
+            out[:, k, 0] = h32
+            out[:, k, 1] = acc_hi
+        else:
+            out[:, k, 0] = mod_u64((h32 << 32) | acc_hi, plan)
+            out[:, k, 1] = h32
+    return out

@@ -1,0 +1,46 @@
+"""Shared inputs for the tests that hold `repro_torch` against `repro`.
+
+Every input is a seeded numpy array; the same arrays go through the JAX
+reference and the PyTorch port, and every comparison is exact equality
+(the hashing is integer and GF(2) arithmetic).
+"""
+import numpy as np
+import torch
+
+ENGINE_FAMILIES = ["multilinear", "multilinear_2x2", "multilinear_hm",
+                   "gf_multilinear", "gf_multilinear_hm"]
+MOD_GRID = [None, 1, 2**20, 4097, 2**32 - 1]
+
+
+def rng(seed: int) -> np.random.Generator:
+    return np.random.Generator(np.random.Philox(key=np.uint64(seed)))
+
+
+def u32(g, shape) -> np.ndarray:
+    return g.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+def t32(a: np.ndarray) -> torch.Tensor:
+    """uint32 numpy -> int32 tensor of the same bits (the port's tokens)."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
+
+
+def ragged(g, batch: int, max_len: int, min_len: int = 0):
+    lens = g.integers(min_len, max_len + 1, size=batch)
+    return [u32(g, int(n)) for n in lens]
+
+
+def engine_case(seed: int, B: int, N: int, K: int, ragged_rows: bool):
+    """(tokens (B, N) u32, key_hi/key_lo (K, N+1) u32 with m1 at column 0,
+    length codes (B,) i32). Ragged cases hold L = 0, odd L, L = N and the
+    padding codes -1 and 0; fixed cases use the code -(N+1)."""
+    g = rng(seed)
+    toks = u32(g, (B, N))
+    kh, kl = u32(g, (K, N + 1)), u32(g, (K, N + 1))
+    if ragged_rows:
+        edge = [0, 1, N, N - 1, -1, 0, 3]
+        lens = np.array((edge + list(g.integers(0, N + 1, size=B)))[:B],
+                        np.int32)
+    else:
+        lens = np.full(B, -(N + 1), np.int32)
+    return toks, kh, kl, lens

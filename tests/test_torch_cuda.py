@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `gpu`: each test skips where no CUDA device exists (decided inside
+the test, never at import). Run on the card with
+`PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py -s`.
+This file imports no JAX: the card's machine has none.
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import ENGINE_FAMILIES, MOD_GRID, engine_case, ragged, rng, t32
+from repro_torch.core import hostref
+from repro_torch.hash import Hasher, HashSpec
+from repro_torch.hash.hasher import planes_to_keys
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import gf_multihash as gfmh
+from repro_torch.kernels import multihash as mhk
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def test_kernels_build(cuda):
+    log = _build.build_all()
+    for name in _build.KERNELS:
+        assert _build.library_path(name).exists()
+        print(name, log.get(name, {}).get("ptxas", "(cached)"))
+
+
+@pytest.mark.parametrize("family", ENGINE_FAMILIES)
+@pytest.mark.parametrize("ragged_rows", [False, True])
+@pytest.mark.parametrize("mod_m", MOD_GRID)
+@pytest.mark.parametrize("K", [1, 3, 9, 20])
+def test_kernel_matches_plain(cuda, family, ragged_rows, mod_m, K):
+    B, N = 37, 301  # B not a multiple of the rows per block, N odd
+    toks, kh, kl, lens = engine_case(0xC0DA + K, B, N, K, ragged_rows)
+    width = N + 1  # even for the HM families; the last column reads 0
+    keys = torch.from_numpy(planes_to_keys(kh, kl))
+    keys = torch.nn.functional.pad(keys, (0, 1))
+    args = (t32(toks), keys, torch.from_numpy(lens))
+    want = ops.multihash(*args, family=family, mod_m=mod_m, width=width)
+    counts = (mhk.launch_count(), gfmh.launch_count())
+    got = ops.multihash(*(a.to(cuda) for a in args), family=family,
+                        mod_m=mod_m, width=width)
+    torch.cuda.synchronize()
+    assert mhk.launch_count() + gfmh.launch_count() == sum(counts) + 1
+    assert torch.equal(got.cpu(), want)
+    plain_on_card = (ref.gf_multihash_ref if family.startswith("gf_")
+                     else ref.multihash_ref)(*(a.to(cuda) for a in args),
+                                             family=family, mod_m=mod_m,
+                                             width=width)
+    assert torch.equal(got, plain_on_card)
+
+
+@pytest.mark.parametrize("family", ENGINE_FAMILIES)
+def test_hasher_on_card_matches_host_twin(cuda, family):
+    h = Hasher.from_spec(HashSpec(family=family, n_hashes=9, out_bits=64,
+                                  seed=0x77), max_len=64)
+    assert h.device.type == "cuda"
+    items = ragged(rng(4), 50, 700)  # grows the batch keys past capacity
+    np.testing.assert_array_equal(h.hash_batch(items),
+                                  h.hash_batch(items, backend="host"))
+    toks = rng(5).integers(0, 2**32, (33, 64), dtype=np.uint64).astype(np.uint32)
+    slots = h(toks).cpu().numpy().astype(np.uint64)
+    surf = (slots[..., 0] << np.uint64(32)) | slots[..., 1]
+    np.testing.assert_array_equal(surf, h.hash_batch(toks, backend="host"))
+    np.testing.assert_array_equal(
+        h.probe_indices(toks, 4097).cpu().numpy(),
+        hostref.mod_u64_np(surf, 4097).astype(np.int64))
