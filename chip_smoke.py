@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's main path -- keys -> `Hasher` -> fused K-hash CUDA kernels
--> Bloom/dedup admission -- at a deployment's scale and checks every result:
+-> Bloom/dedup admission -- and the single-hash path -- `multilinear_hash`
+/ `gf_hash` -> single-hash CUDA kernels, and the streaming fingerprints on
+top of them -- at a deployment's scale and checks every result:
 
-1. device: the card's name and power limit; nvcc builds both kernels from
-   the sources in this checkout (timed, with ptxas' register report);
+1. device: the card's name and power limit; nvcc builds the four kernels
+   from the sources in this checkout (timed, with ptxas' register report);
 2. kernels vs plain versions: every engine family, fixed and ragged rows
    (L = 0, odd L, L at the thread-stride edge), K in {1, 3, 9, 20}, mod_m in
    {none, 1, 2^20, 4097, 2^32-1}: `torch.equal` with the plain PyTorch
@@ -22,12 +24,27 @@ Drives the port's main path -- keys -> `Hasher` -> fused K-hash CUDA kernels
    `HashPipeline.admit_batch`, over 32 batches of 8,192 documents of 64-2,048
    tokens (vocabulary 50,000) with 10 % planted exact repeats: one launch per
    batch, every planted repeat rejected, the admitted count plausible;
+6. single-hash path, every family through `multilinear_hash`/`gf_hash`,
+   each result equal to the entry point's plain version on the card
+   (`torch.equal`) and to the numpy twins on a row subsample:
+   a. many strings: B = 65,536 x N = 1,024, keys from one key buffer of
+      N + 1 u64 (256-row subsample);
+   b. long strings: B = 64 x N = 1,048,576 (4 MiB per row, an 8 MiB key
+      buffer), plus both HM families at odd N = 1,048,575 (16-row
+      subsample: the numpy carry-less twin takes seconds per million
+      tokens);
+   c. streaming: `Hasher(multilinear)` with chunk_words 1,024 and
+      max_chunks 4,096 absorbs a 4,194,304-token stream on the card in 64
+      updates of 65,536 tokens and again in uneven blocks (1, 1,023, 1,025,
+      rest); both digests equal each other, `stream_digest_host` (numpy)
+      and the digest of the same stream on the CPU, and each update that
+      completes chunks makes exactly one kernel launch;
 5. measurements: phase 3's Hasher outputs against the plain version and
    each surface's time; each kernel's time (CUDA events, warm repeats)
    beside its bound and its plain version's time, at the shapes of phases
-   3 and 4.
+   3, 4, 6a and 6b, and the single-hash entry points' times at 6a.
 
-The launch counts are set to 0 before phase 3 and read after phase 4: that
+The launch counts are set to 0 before phase 3 and read after phase 6: that
 run is the main path. Launches made to compare or to time come after.
 Any failed check exits non-zero. The last line is the JSON device record.
 """
@@ -55,6 +72,10 @@ KERNELS = {
                   "src/repro/kernels/multihash.py:69"),
     "gf_multihash": ("src/repro_torch/kernels/csrc/gf_multihash.cu",
                      "src/repro/kernels/gf_multihash.py:84"),
+    "multilinear": ("src/repro_torch/kernels/csrc/multilinear.cu",
+                    "src/repro/kernels/multilinear.py:72"),
+    "gf_multilinear": ("src/repro_torch/kernels/csrc/gf_multilinear.cu",
+                       "src/repro/kernels/gf_multilinear.py:40"),
 }
 
 
@@ -88,22 +109,31 @@ class Port:
         sys.path.insert(0, str(ROOT / "src"))
         import torch
 
-        from repro_torch.core import hostref, limbs
+        from repro_torch.core import gf, hostref, keys, limbs
         from repro_torch.data import BloomFilter, ExactDedup, HashPipeline, PipelineConfig
-        from repro_torch.hash import Hasher, HashSpec
+        from repro_torch.hash import Hasher, HashSpec, streaming
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import gf_multihash as gfmh
+        from repro_torch.kernels import gf_multilinear as gfk
         from repro_torch.kernels import multihash as mhk
+        from repro_torch.kernels import multilinear as mlk
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
+        self.gf, self.keys, self.streaming = gf, keys, streaming
         self.BloomFilter, self.ExactDedup = BloomFilter, ExactDedup
         self.HashPipeline, self.PipelineConfig = HashPipeline, PipelineConfig
         self.Hasher, self.HashSpec = Hasher, HashSpec
         self.build, self.ops, self.ref = _build, ops, ref
-        self.wrappers = {"multihash": mhk, "gf_multihash": gfmh}
+        self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
+                         "multilinear": mlk, "gf_multilinear": gfk}
+        self.single = {"multilinear": mlk.hash_blocks,
+                       "gf_multilinear": gfk.gf_hash_blocks}
 
     def kernel_of(self, family: str) -> str:
         return "gf_multihash" if family.startswith("gf_") else "multihash"
+
+    def single_of(self, family: str) -> str:
+        return "gf_multilinear" if family.startswith("gf_") else "multilinear"
 
     def counts(self) -> dict:
         return {k: m.launch_count() for k, m in self.wrappers.items()}
@@ -117,18 +147,38 @@ class Port:
               else self.ref.multihash_ref)
         return fn(*args, family=family, **kw)
 
+    def plain_single(self, family, toks, keys):
+        """Single-hash kernel's plain version; keys (N,) int64 u64 bits
+        (the carry-less families take their low 32 bits)."""
+        if family.startswith("gf_"):
+            return self.ref.gf_accumulate_ref(toks, keys.to(self.torch.int32),
+                                              family=family)
+        return self.ref.multilinear_accumulate_ref(toks, keys, family=family)
 
-def one_launch(port: Port, family: str, fn):
-    """Run fn(); require exactly one launch of the family's kernel (on the
-    card) and one engine dispatch."""
+    def plain_hash(self, family, toks, keys):
+        """Plain version of multilinear_hash / gf_hash: keys (N+1,) int64
+        u64 bits, key 0 is m1."""
+        acc = self.plain_single(family, toks, keys[1:])
+        acc = (acc[:, 0] << 32) | acc[:, 1]
+        if family.startswith("gf_"):
+            return self.gf.barrett_reduce(acc ^ (keys[0] & 0xFFFFFFFF))
+        return self.limbs.hi32(acc + keys[0])
+
+
+def one_launch(port: Port, family: str, fn, kernel: str | None = None):
+    """Run fn(); require exactly one launch on the card of `kernel` -- by
+    default the family's engine kernel, which also makes one engine
+    dispatch -- and none of any other kernel."""
+    engine = kernel is None
+    kernel = port.kernel_of(family) if engine else kernel
     c0, d0 = port.counts(), port.ops.launch_count()
     out = fn()
     c1 = port.counts()
     want = dict(c0)
     if port.torch.cuda.is_available():
-        want[port.kernel_of(family)] += 1
-    check(c1 == want and port.ops.launch_count() == d0 + 1,
-          f"{family}: expected one launch, counts {c0} -> {c1}")
+        want[kernel] += 1
+    check(c1 == want and port.ops.launch_count() == d0 + engine,
+          f"{family}: expected one {kernel} launch, counts {c0} -> {c1}")
     return out
 
 
@@ -167,7 +217,24 @@ def bound(kernel: str, B: int, N: int, W: int, K: int,
     loaded, hashed = live_work(lens, N)
     nbytes = loaded * 4 + K * (W + 1) * 8 + B * 4 + B * K * 2 * 8
     per = 64 if kernel == "gf_multihash" else 2
-    ops = per * hashed * K
+    return _least_ms(nbytes, per * hashed * K)
+
+
+def single_bound(family: str, B: int, N: int, port: Port) -> tuple[float, str]:
+    """Least time (ms) of a single-hash kernel call: the tokens it hashes
+    (B x cols, cols = N, or 2 floor(N / 2) for HM) and as many keys (8 bytes,
+    4 for the carry-less families) read once, (B, 2) int64 written once,
+    over the memory rate; 2 operations per token for the integer kernel, 64
+    for carry-less plain and 32 for carry-less HM (one 32-step clmul per
+    pair), over the instruction rate."""
+    cols = port.ref.hashed_cols(N, family)
+    gf = family.startswith("gf_")
+    nbytes = B * cols * 4 + cols * (4 if gf else 8) + B * 16
+    per = (32 if family in port.ref.PAIRWISE else 64) if gf else 2
+    return _least_ms(nbytes, per * B * cols)
+
+
+def _least_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
@@ -209,7 +276,7 @@ def kernel_vs_plain(port: Port, device, B=256, N=300) -> dict:
     torch = port.torch
     g = np.random.default_rng(SEED)
     edge = [0, 1, 2, 3, 127, 128, 129, 255, 256, 257, N - 1, N]
-    errs = {k: 0 for k in KERNELS}
+    errs = {"multihash": 0, "gf_multihash": 0}
     for K in (1, 3, 9, 20):
         W = N + 2  # even, and room for the sentinel of a full row
         toks = g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32)
@@ -371,6 +438,104 @@ def admission(port: Port, device, batches, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 6: the single-hash path (also on the main path)
+# --------------------------------------------------------------------------
+
+def single_host(port: Port, family: str, s: np.ndarray, ku: np.ndarray):
+    """The numpy twins of multilinear_hash / gf_hash on rows s (uint32)."""
+    hr = port.hostref
+    N = s.shape[1]
+    c = port.ref.hashed_cols(N, family)
+    if family == "multilinear_hm":
+        return hr.multilinear_hm_np(s[:, :c], ku[:c + 1])
+    if not family.startswith("gf_"):
+        return hr.multilinear_np(s, ku)
+    k = ku & np.uint64(0xFFFFFFFF)
+    if family == "gf_multilinear_hm":
+        prod = hr._clmul32_np(k[1:c + 1:2] ^ s[:, 0:c:2], k[2:c + 1:2] ^ s[:, 1:c:2])
+    else:
+        prod = hr._clmul32_np(k[1:N + 1], s)
+    return hr._gf_barrett_np(np.bitwise_xor.reduce(prod, axis=-1) ^ k[0])
+
+
+def single_path(port: Port, device, B: int, N: int, n_sub: int,
+                families=FAMILIES) -> dict:
+    """`multilinear_hash`/`gf_hash` of B rows of N tokens for each family:
+    one launch each, equal to the plain version and to the numpy twins on
+    n_sub rows. Returns the inputs for phase 5."""
+    torch = port.torch
+    gen = torch.Generator(device=device).manual_seed(SEED + N)
+    toks = torch.randint(-2**31, 2**31, (B, N), generator=gen,
+                         dtype=torch.int32, device=device)
+    ku = port.keys.KeyBuffer(seed=SEED).u64(N + 1)
+    keys = torch.from_numpy(ku.view(np.int64)).to(device)
+    hi, lo = (torch.from_numpy(x.view(np.int32)).to(device)
+              for x in port.keys.split_hi_lo(ku))
+    sub = np.linspace(0, B - 1, min(n_sub, B)).astype(np.int64)
+    s = toks[torch.from_numpy(sub).to(device)].cpu().numpy().view(np.uint32)
+    for family in families:
+        if family.startswith("gf_"):
+            fn = lambda: port.ops.gf_hash(toks, lo, family=family)  # noqa: E731
+        else:
+            fn = lambda: port.ops.multilinear_hash(toks, hi, lo, family=family)  # noqa: E731
+        out = one_launch(port, family, fn, kernel=port.single_of(family))
+        want = port.plain_hash(family, toks, keys)
+        torch.cuda.synchronize()
+        what = f"{family} B={B} N={N}"
+        check(tuple(out.shape) == (B,) and torch.equal(out, want),
+              f"{what}: entry point != plain version")
+        check(np.array_equal(out[torch.from_numpy(sub).to(device)].cpu().numpy(),
+                             single_host(port, family, s, ku).astype(np.int64)),
+              f"{what}: entry point != numpy twin")
+        print(f"{what}: (B,) hashes == plain version == numpy twin "
+              f"({len(sub)} rows)")
+    return {"tokens": toks, "keys": keys, "hi": hi, "lo": lo,
+            "families": families}
+
+
+def streaming(port: Port, device, n_tokens=4_194_304, chunk_words=1024,
+              max_chunks=4096, block=65_536) -> dict:
+    """Stream fingerprints on the card: even and uneven updates, one kernel
+    launch per update that completes chunks; digests equal each other, the
+    numpy reference and the CPU digest."""
+    torch = port.torch
+    spec = port.HashSpec(family="multilinear", seed=SEED)
+    h = port.Hasher.from_spec(spec, max_len=chunk_words, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    toks = torch.randint(-2**31, 2**31, (n_tokens,), generator=gen,
+                         dtype=torch.int32, device=device)
+
+    def absorb(bounds):
+        st = h.stream(chunk_words=chunk_words, max_chunks=max_chunks)
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            before = port.counts()["multilinear"]
+            fill = st.fill
+            st = h.update(st, toks[a:b])
+            want = int(torch.cuda.is_available()
+                       and (fill + b - a) // chunk_words > 0)
+            check(port.counts()["multilinear"] == before + want,
+                  f"stream update [{a}, {b}): expected {want} launch(es)")
+        return st
+
+    t0 = time.perf_counter()
+    st = absorb(list(range(0, n_tokens + 1, block)))
+    even = h.digest_int(st)
+    wall = time.perf_counter() - t0
+    uneven = h.digest_int(absorb([0, 1, 1024, 2049, n_tokens]))
+    host = port.streaming.stream_digest_host(
+        h, toks.cpu().numpy().view(np.uint32), chunk_words, max_chunks)
+    hc = port.Hasher.from_spec(spec, max_len=chunk_words, device="cpu")
+    cpu = hc.digest_int(hc.update(hc.stream(chunk_words, max_chunks), toks.cpu()))
+    check(even == uneven == host == cpu,
+          f"stream digests differ: {even:#x} {uneven:#x} {host:#x} {cpu:#x}")
+    print(f"stream of {n_tokens} tokens ({n_tokens // block} updates of {block}): "
+          f"digest {even:#018x} == uneven blocks == stream_digest_host == CPU; "
+          f"{1e3 * wall:.3f} ms wall for the updates and the digest")
+    return {"tokens": n_tokens, "updates": n_tokens // block, "ms": 1e3 * wall,
+            "digest": f"{even:#018x}"}
+
+
+# --------------------------------------------------------------------------
 # phase 5: measurements
 # --------------------------------------------------------------------------
 
@@ -449,7 +614,56 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
         bf_h.hash_batch(docs)
         print(f"{family}: hash_batch of one admission batch (stack, upload, "
               f"launch, download) {1e3 * (time.perf_counter() - t0):.3f} ms wall")
-    return [records[k] for k in KERNELS], rows
+    return records, rows
+
+
+def measure_single(port: Port, device, shapes: dict, launches: dict,
+                   card: str):
+    """Single-hash kernels vs their plain versions at phase 6's shapes:
+    equality, times and bounds; then the entry points' times at 6a (the
+    kernel plus m1 and the finish in PyTorch: >> 32, or Barrett)."""
+    torch = port.torch
+    rows, records = [], {}
+    for label, res in shapes.items():
+        toks, keys = res["tokens"], res["keys"]
+        B, N = toks.shape
+        for family in res["families"]:
+            name = port.single_of(family)
+            k = keys[1:] if name == "multilinear" else keys[1:].to(torch.int32)
+            run = lambda: port.single[name](toks, k, family=family)  # noqa: E731
+            got, want = run(), port.plain_single(family, toks, keys[1:])
+            check(torch.equal(got, want), f"{family} {label}: kernel != plain")
+            err = int((got - want).abs().max().item())
+            del got, want
+            ms = timed(port, run, 20)
+            plain_ms = timed(port, lambda: port.plain_single(
+                family, toks, keys[1:]), 2)
+            b_ms, b_by = single_bound(family, B, N, port)
+            row = {"kernel": name, "family": family, "shape": label, "B": B,
+                   "N": N, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "max_abs_err": err}
+            rows.append(row)
+            print(json.dumps(row))
+            if label == "6a" and family == name:
+                records[name] = {
+                    "name": name, "route": "cuda", "source": KERNELS[name][0],
+                    "replaces": KERNELS[name][1], "launches": launches[name],
+                    "matches_plain": err == 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None}
+    res = shapes["6a"]
+    toks, hi, lo = res["tokens"], res["hi"], res["lo"]
+    for family in FAMILIES:
+        if family.startswith("gf_"):
+            fn = lambda: port.ops.gf_hash(toks, lo, family=family)  # noqa: E731
+        else:
+            fn = lambda: port.ops.multilinear_hash(toks, hi, lo, family=family)  # noqa: E731
+        row = {"surface": "gf_hash" if family.startswith("gf_") else
+               "multilinear_hash", "family": family, "B": toks.shape[0],
+               "N": toks.shape[1], "ms": timed(port, fn, 10), "card": card}
+        rows.append(row)
+        print(json.dumps(row))
+    return records, rows
 
 
 def main() -> int:
@@ -484,6 +698,15 @@ def main() -> int:
             pure = pure_path(port, device, B, N, K)
         with phase("phase 4: admission"):
             admit = admission(port, device, batches, card)
+        with phase("phase 6a: single hash, many strings"):
+            single = {"6a": single_path(port, device, 65536, 1024, 256)}
+        with phase("phase 6b: single hash, long strings"):
+            single["6b"] = single_path(port, device, 64, 1 << 20, 16)
+            hm = ("multilinear_hm", "gf_multilinear_hm")
+            single["6b-odd"] = single_path(port, device, 64, (1 << 20) - 1, 16,
+                                           families=hm)
+        with phase("phase 6c: streaming fingerprints"):
+            stream = streaming(port, device)
         launches = port.counts()
         print(f"main path launches: {launches}")
         check(all(v > 0 for v in launches.values()),
@@ -491,11 +714,15 @@ def main() -> int:
         with phase("phase 5: measurements"):
             kernels, rows = measure(port, device, pure, batches[0], K, launches,
                                     card)
+            more, single_rows = measure_single(port, device, single, launches,
+                                               card)
+            kernels = [{**kernels, **more}[k] for k in KERNELS]
+            rows += single_rows
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "rows": rows, "admission": admit,
-             "kernels": kernels}, indent=1))
+             "stream": stream, "kernels": kernels}, indent=1))
         print(f"total {time.perf_counter() - t_start:.3f} s wall; card {card}")
         print(json.dumps({"kernels": kernels}))
         print(card)

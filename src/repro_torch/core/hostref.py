@@ -1,8 +1,9 @@
-"""Host-side numpy (uint64) twins of the fused multi-hash engine.
+"""Host-side numpy (uint64) twins of the hash families and the engine.
 
 The PyTorch port's own copy of `repro.core.hostref` (the slice it needs):
-the length-code algebra, the vectorized integer and carry-less multi-hash
-oracles, and the Barrett `mod m` twin. numpy uint64 arithmetic wraps mod
+the single-hash Multilinear(-HM) oracles and the arbitrary-precision
+ground truth, the length-code algebra, the vectorized integer and
+carry-less multi-hash oracles, and the Barrett `mod m` twin. numpy uint64 arithmetic wraps mod
 2^64 like the paper's C code, so these functions need no JAX and serve as
 an independent oracle wherever the port runs, the CUDA machine included.
 """
@@ -12,6 +13,40 @@ import numpy as np
 
 U64 = np.uint64
 _32 = np.uint64(32)
+
+
+def multilinear_np(tokens: np.ndarray, keys_u64: np.ndarray) -> np.ndarray:
+    """(..., n) uint32 tokens, (>= n+1,) uint64 keys -> (...,) uint32."""
+    with np.errstate(over="ignore"):  # mod-2^64 wraparound is the algorithm
+        s = np.asarray(tokens).astype(U64)
+        n = s.shape[-1]
+        k = keys_u64[1 : n + 1]
+        acc = keys_u64[0] + (k * s).sum(axis=-1, dtype=U64)
+        return (acc >> _32).astype(np.uint32)
+
+
+def multilinear_hm_np(tokens: np.ndarray, keys_u64: np.ndarray) -> np.ndarray:
+    """MULTILINEAR-HM of (..., n) uint32 tokens, n even -> (...,) uint32."""
+    with np.errstate(over="ignore"):
+        s = np.asarray(tokens).astype(U64)
+        n = s.shape[-1]
+        if n % 2:
+            raise ValueError("MULTILINEAR-HM needs an even length")
+        k = keys_u64[1 : n + 1]
+        a = k[0::2] + s[..., 0::2]
+        b = k[1::2] + s[..., 1::2]
+        acc = keys_u64[0] + (a * b).sum(axis=-1, dtype=U64)
+        return (acc >> _32).astype(np.uint32)
+
+
+def multilinear_np_u64(tokens: np.ndarray, keys_u64: np.ndarray) -> np.ndarray:
+    """Full 64-bit accumulator (before >>32) -- used for fingerprints where
+    we keep all 64 bits (checkpoint integrity, dedup)."""
+    with np.errstate(over="ignore"):
+        s = np.asarray(tokens).astype(U64)
+        n = s.shape[-1]
+        k = keys_u64[1 : n + 1]
+        return keys_u64[0] + (k * s).sum(axis=-1, dtype=U64)
 
 
 def mod_u64_np(h: np.ndarray, m: int) -> np.ndarray:
@@ -180,3 +215,18 @@ def gf_multilinear_multi_np(tokens: np.ndarray, lens: np.ndarray,
     acc = np.bitwise_xor.reduce(p, axis=-1) ^ keys32[:, 0][:, None].astype(U64)
     h32 = _gf_barrett_np(acc)
     return ((h32.astype(U64) << _32) | (acc >> _32)).T
+
+
+def python_int_oracle(tokens, keys, hm: bool = False) -> int:
+    """Arbitrary-precision ground truth (mod 2^64 made explicit)."""
+    mod = 1 << 64
+    acc = int(keys[0])
+    if hm:
+        for i in range(len(tokens) // 2):
+            acc += (int(keys[2 * i + 1]) + int(tokens[2 * i])) * (
+                int(keys[2 * i + 2]) + int(tokens[2 * i + 1])
+            )
+    else:
+        for i, t in enumerate(tokens):
+            acc += int(keys[i + 1]) * int(t)
+    return (acc % mod) >> 32

@@ -36,6 +36,14 @@ def generate_keys_u64(seed: int, start: int, count: int) -> np.ndarray:
     return raw[off : off + count]
 
 
+def planes_to_keys(key_hi: np.ndarray, key_lo: np.ndarray) -> np.ndarray:
+    """(..., n) uint32 hi/lo planes -> (..., n) int64 array of the u64 bits
+    (the port's key tensors carry u64 keys in int64)."""
+    hi = np.asarray(key_hi, np.uint32).astype(np.uint64)
+    lo = np.asarray(key_lo, np.uint32).astype(np.uint64)
+    return ((hi << np.uint64(32)) | lo).view(np.int64)
+
+
 def split_hi_lo(keys_u64: np.ndarray):
     """uint64 keys -> (hi, lo) uint32 planes (little-endian limbs)."""
     hi = (keys_u64 >> np.uint64(32)).astype(np.uint32)

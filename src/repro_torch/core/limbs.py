@@ -94,3 +94,52 @@ def unpack_bits32(x: torch.Tensor) -> torch.Tensor:
     """(...,) u32 values (int64) -> (..., 32) int64 bit planes, LSB first."""
     shifts = torch.arange(32, dtype=torch.int64, device=x.device)
     return (x[..., None] >> shifts) & 1
+
+
+# ---------------------------------------------------------------------------
+# Little-endian multiword values (K = 32 n bits, paper §3.2 / §5.5): tuples
+# of n int64 tensors, each holding one u32 limb.
+# ---------------------------------------------------------------------------
+
+def mw_add(a, b):
+    """Multiword add mod 2^(32n) of two limb tuples."""
+    out, carry = [], 0
+    for x, y in zip(a, b):
+        s = x + y + carry  # < 2^33 + 1: exact in int64
+        out.append(s & MASK32)
+        carry = s >> 32
+    return tuple(out)
+
+
+def mw_add_u32(a, x):
+    """Multiword add mod 2^(32n) of a limb tuple and one u32 value."""
+    out, carry = [], x
+    for limb in a:
+        s = limb + carry
+        out.append(s & MASK32)
+        carry = s >> 32
+    return tuple(out)
+
+
+def mw_mul(a, b):
+    """Multiword schoolbook product mod 2^(32n) of two limb tuples.
+
+    The 32x32 -> 64 partial product wraps in int64, but its bits are the
+    u64 product; each column sum acc + lo + carry stays below 3 * 2^32 and
+    each carry below 2^32, so every step is exact.
+    """
+    n = len(a)
+    acc = [torch.zeros_like(a[0]) for _ in range(n)]
+    for i in range(n):
+        carry = torch.zeros_like(a[0])
+        for j in range(n - i):
+            p = a[i] * b[j]
+            s = acc[i + j] + (p & MASK32) + carry
+            acc[i + j] = s & MASK32
+            carry = hi32(p) + (s >> 32)
+    return tuple(acc)
+
+
+def mw_shr_to_top(a, z_bits: int = 32):
+    """The top 32-bit limb: the multiword value >> (32n - 32)."""
+    return a[-1]

@@ -6,9 +6,11 @@
     hb = hasher.hash_batch(ragged_items)               # numpy, one launch
 
 Submodules: spec (HashSpec), hasher (Hasher), keyring (bounded-LRU
-defaults), sharding (Lemire-reduced shard routing).
+defaults), sharding (Lemire-reduced shard routing), streaming (two-level
+incremental fingerprints, fingerprint_bytes).
 """
-from . import keyring, sharding, spec  # noqa: F401
+from . import keyring, sharding, spec, streaming  # noqa: F401
 from .hasher import Hasher  # noqa: F401
 from .sharding import reduce_range, shard_assignment  # noqa: F401
 from .spec import DEFAULT_SEED, FAMILY_NAMES, HashSpec  # noqa: F401
+from .streaming import StreamState, fingerprint_bytes, stream_digest_host  # noqa: F401

@@ -9,6 +9,8 @@ device (m1 at column 0, positional keys after it). Two call surfaces:
 - ``hasher.hash_batch(items, ...)`` -- numpy or ragged lists in, numpy out
   (uint32 / uint64 exactly as the reference returns them), one launch per
   batch; ``backend="host"`` runs the numpy twin instead.
+- ``hasher.stream()/.update()/.digest()`` -- incremental two-level
+  fingerprints of long token streams (streaming.py).
 
 Tokens enter as int32 tensors holding u32 bits (uint32 tensors and numpy
 arrays are converted). Hash values leave as int64 tensors holding u32
@@ -20,37 +22,18 @@ import numpy as np
 import torch
 
 from ..core import hostref, limbs
-from ..core.device import resolve_device
-from ..core.keys import MultiKeyBuffer
+from ..core.device import as_tokens, resolve_device
+from ..core.keys import MultiKeyBuffer, planes_to_keys
 from ..kernels import ops as kops
 from ..kernels.autotune import pow2_at_least
+from . import streaming
 from .spec import FAMILIES, HashSpec
 
-_NOT_PORTED = ("not ported yet: streaming and sharded hashing are ROADMAP "
-               "Queue 1 items 7-8")
+_NOT_PORTED = "not ported yet: sharded hashing is ROADMAP Queue 1 item 8"
 
 
 def _even(n: int) -> int:
     return n + (n & 1)
-
-
-def planes_to_keys(key_hi: np.ndarray, key_lo: np.ndarray) -> np.ndarray:
-    """(K, n) uint32 hi/lo planes -> (K, n) int64 array of the u64 bits."""
-    hi = np.asarray(key_hi, np.uint32).astype(np.uint64)
-    lo = np.asarray(key_lo, np.uint32).astype(np.uint64)
-    return ((hi << np.uint64(32)) | lo).view(np.int64)
-
-
-def as_tokens(tokens, device) -> torch.Tensor:
-    """Tokens as an int32 tensor of u32 bits on `device`."""
-    if isinstance(tokens, torch.Tensor):
-        if tokens.dtype == torch.uint32:
-            tokens = tokens.view(torch.int32)
-        if tokens.dtype != torch.int32:
-            raise TypeError(f"tokens must be int32 or uint32, got {tokens.dtype}")
-        return tokens.to(device)
-    arr = np.ascontiguousarray(np.asarray(tokens).astype(np.uint32))
-    return torch.from_numpy(arr.view(np.int32)).to(device)
 
 
 def _stack_ragged(tokens):
@@ -276,16 +259,28 @@ class Hasher:
         return hostref.multilinear_multi_np(toks_h, lens, keys,
                                             family=self.spec.family)
 
+    # -- streaming (two-level UMAC-style tree; see streaming.py) --------------
+
+    def stream(self, chunk_words: int = 1024, max_chunks: int = 4096):
+        """Fresh incremental-fingerprint state (see `streaming.StreamState`)."""
+        return streaming.init_stream(self, chunk_words, max_chunks)
+
+    def update(self, state, tokens):
+        """Absorb a 1-D token block into the stream (one kernel launch on
+        the card when the block completes chunks)."""
+        return streaming.update(self, state, tokens)
+
+    def digest(self, state):
+        """Finalize: (2,) int64 (hi, lo) u32 halves of the 64-bit fingerprint."""
+        return streaming.digest(self, state)
+
+    def digest_int(self, state) -> int:
+        """`digest` as a Python int (one device sync)."""
+        streaming._check_overflow(state)
+        hi, lo = self.digest(state).tolist()
+        return (hi << 32) | lo
+
     # -- not in this slice ---------------------------------------------------
-
-    def stream(self, *args, **kwargs):
-        raise NotImplementedError(f"Hasher.stream: {_NOT_PORTED}")
-
-    def update(self, *args, **kwargs):
-        raise NotImplementedError(f"Hasher.update: {_NOT_PORTED}")
-
-    def digest(self, *args, **kwargs):
-        raise NotImplementedError(f"Hasher.digest: {_NOT_PORTED}")
 
     def sharded(self, *args, **kwargs):
         raise NotImplementedError(f"Hasher.sharded: {_NOT_PORTED}")

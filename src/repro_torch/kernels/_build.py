@@ -21,15 +21,22 @@ from . import autotune
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("multihash", "gf_multihash")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Every kernel exports one C function of this signature:
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The fused K-hash engine's C signature:
 # int repro_<name>(tokens, keys, lens, out, B, N, W, K, ldk, pairwise, mod_m,
-#                  stream) returning cudaGetLastError() after its launch.
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p]
+#                  stream)
+_ENGINE = [_P] * 4 + [_I] * 4 + [ctypes.c_longlong, _I, ctypes.c_ulonglong, _P]
+# The single-hash kernels' C signature:
+# int repro_<name>(tokens, keys, part, out, B, N, pairwise, stream)
+_SINGLE = [_P] * 4 + [_I] * 3 + [_P]
+#: kernel name -> argument types of its C function `repro_<name>`, which
+#: returns cudaGetLastError() after its launches. The stream comes last.
+SIGNATURES = {"multihash": _ENGINE, "gf_multihash": _ENGINE,
+              "multilinear": _SINGLE, "gf_multilinear": _SINGLE}
+KERNELS = tuple(SIGNATURES)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": wall time of its nvcc run, "ptxas": nvcc's -v output}
@@ -53,7 +60,7 @@ def _flags() -> list[str]:
 def library_path(name: str) -> Path:
     """Where `name`'s library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):  # headers are shared by both
+    for src in sorted(CSRC.glob("*.cu*")):  # headers are shared
         h.update(src.name.encode() + src.read_bytes())
     h.update(name.encode() + " ".join(_flags()).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -95,23 +102,20 @@ def load(name: str) -> ctypes.CDLL:
             build_all()
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, f"repro_{name}")
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
 
-def launch(name: str, tokens, keys, lens, out, *, N: int, W: int,
-           pairwise: bool, mod_m: int) -> None:
-    """Launch kernel `name` on the current stream of `tokens`' device."""
+def launch(name: str, device, *args) -> None:
+    """Launch kernel `name` on the current stream of `device`. `args` are
+    its C arguments before the stream: a tensor passes its data pointer."""
     import torch
 
     fn = getattr(load(name), f"repro_{name}")
-    B, K = out.shape[0], out.shape[1]
-    with torch.cuda.device(tokens.device):
-        stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        err = fn(tokens.data_ptr(), keys.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), B, N, W, K, keys.stride(0), int(pairwise),
-                 mod_m, stream)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

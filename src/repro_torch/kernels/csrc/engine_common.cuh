@@ -1,6 +1,7 @@
-// Shared pieces of the fused multi-hash kernels (multihash.cu,
-// gf_multihash.cu): launch constants, the length-code algebra and the
-// block-wide reduction of the per-thread accumulators.
+// Shared pieces of the hash kernels: the fused multi-hash engine's launch
+// constants, length-code algebra and block-wide reduction (multihash.cu,
+// gf_multihash.cu), and the carry-less product that gf_multihash.cu and
+// gf_multilinear.cu both use.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,6 +23,15 @@ static_assert(MH_THREADS >= MH_ROWS * MH_K_CHUNK,
 
 typedef uint64_t u64;
 typedef uint32_t u32;
+
+// Carry-less 32x32 -> 63-bit product: plane i is a << i, gated by bit i of b.
+__device__ __forceinline__ u64 clmul32(u32 a, u32 b) {
+  const u64 wa = a;
+  u64 r = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) r ^= (wa << i) & (0ull - (u64)((b >> i) & 1u));
+  return r;
+}
 
 // Length code of one row (repro/kernels/multihash.py::_mask_tile):
 // code >= 0 is a variable-length row of `code` tokens with the sentinel 1 at

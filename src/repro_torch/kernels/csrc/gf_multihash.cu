@@ -30,15 +30,6 @@ struct XorOp {
   __device__ __forceinline__ u64 operator()(u64 a, u64 b) const { return a ^ b; }
 };
 
-// Carry-less 32x32 -> 63-bit product: plane i is a << i, gated by bit i of b.
-__device__ __forceinline__ u64 clmul32(u32 a, u32 b) {
-  const u64 wa = a;
-  u64 r = 0;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) r ^= (wa << i) & (0ull - (u64)((b >> i) & 1u));
-  return r;
-}
-
 // Product with the 33-bit p = 2^32 + POLY_LOW; a < 2^31 here.
 __device__ __forceinline__ u64 clmul_poly(u64 a) {
   return clmul32((u32)a, GF_POLY_LOW) ^ (a << 32);

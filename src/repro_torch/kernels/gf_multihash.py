@@ -44,8 +44,8 @@ def gf_multihash(tokens, keys, lens, *, family="gf_multilinear",
     out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
     if B == 0:
         return out
-    _build.launch("gf_multihash", tokens, keys, lens, out, N=N, W=W,
-                  pairwise=family in ref.PAIRWISE,
-                  mod_m=0 if plan is None else plan.m)
+    _build.launch("gf_multihash", tokens.device, tokens, keys, lens, out,
+                  B, N, W, K, keys.stride(0), int(family in ref.PAIRWISE),
+                  0 if plan is None else plan.m)
     _LAUNCHES[0] += 1
     return out

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the fused multi-hash kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
-`multihash_ref` and `gf_multihash_ref` compute exactly what the CUDA
-kernels in `csrc/` compute, with ordinary tensor operations. They run the
-CPU path of `kernels.multihash.multihash` / `kernels.gf_multihash.
-gf_multihash` and are what `chip_smoke.py` holds each kernel against on
-the card. They follow the reference's oracles (`repro.kernels.ref.
+`multihash_ref` and `gf_multihash_ref` (the fused K-hash engine) and
+`multilinear_accumulate_ref` and `gf_accumulate_ref` (the single-hash raw
+accumulators) compute exactly what the CUDA kernels in `csrc/` compute,
+with ordinary tensor operations. They run the CPU path of the kernel
+wrappers (`kernels.multihash`, `gf_multihash`, `multilinear`,
+`gf_multilinear`) and are what `chip_smoke.py` holds each kernel against
+on the card. They follow the reference's oracles (`repro.kernels.ref.
 multihash_ref`, `gf_multihash_ref`) and its length-code algebra
 (`repro.kernels.multihash._mask_tile`) operation for operation, on int64
 tensors that carry u32 lanes and u64 accumulators (see `core.limbs`).
@@ -23,6 +25,13 @@ Engine layout shared by the plain versions and the kernels:
 - output: (B, K, 2) int64 holding u32 values in the reference's slots:
   (hash32, lo) for the integer families, (hash32, acc_hi) for the carry-less
   ones; with `mod_m`, (surface mod m, hash32).
+
+Single-hash layout (`single_shapes`): tokens (B, N) int32 as above; keys
+(N,) without m1, int64 u64 bits (integer families) or int32 u32 bits
+(carry-less ones); output (B, 2) int64 holding the u32 (hi, lo) of the raw
+accumulator. The HM families hash floor(N / 2) pairs: the reference pads
+an odd row with a zero token and a zero key, so its last token adds
+(k + s) * 0 = 0.
 """
 from __future__ import annotations
 
@@ -160,3 +169,60 @@ def gf_multihash_ref(tokens, keys, lens, *, family="gf_multilinear",
             out[:, k, 0] = mod_u64((h32 << 32) | acc_hi, plan)
             out[:, k, 1] = h32
     return out
+
+
+def single_shapes(tokens, keys, family, families):
+    """Validate the single-hash operands; returns (B, N)."""
+    if family not in families:
+        raise ValueError(f"unknown family {family!r}; have {families}")
+    if tokens.dtype != torch.int32 or tokens.dim() != 2:
+        raise TypeError(f"tokens must be (B, N) int32, got {tuple(tokens.shape)} "
+                        f"{tokens.dtype}")
+    B, N = tokens.shape
+    kdt = torch.int32 if family in GF_FAMILIES else torch.int64
+    if keys.dtype != kdt or tuple(keys.shape) != (N,):
+        raise TypeError(f"keys must be ({N},) {kdt}, got {tuple(keys.shape)} "
+                        f"{keys.dtype}")
+    if tokens.device != keys.device:
+        raise ValueError("tokens and keys must be on one device")
+    if not (tokens.is_contiguous() and keys.is_contiguous()):
+        raise ValueError("tokens and keys must be contiguous")
+    return B, N
+
+
+def hashed_cols(N: int, family: str) -> int:
+    """Columns a single-hash row of N tokens hashes (HM: whole pairs)."""
+    return N - N % 2 if family in PAIRWISE else N
+
+
+def _split(acc: torch.Tensor) -> torch.Tensor:
+    return torch.stack([hi32(acc), lo32(acc)], dim=1)
+
+
+def multilinear_accumulate_ref(tokens, keys, family="multilinear"):
+    """(B, N) tokens x (N,) u64 keys (no m1) -> (B, 2) int64 (hi, lo) of
+    sum k_i s_i mod 2^64 (HM: sum (k_2p + s_2p)(k_2p+1 + s_2p+1))."""
+    B, N = single_shapes(tokens, keys, family, INT_FAMILIES)
+    s = tokens.to(torch.int64) & MASK32
+    if family == "multilinear_hm":
+        c = hashed_cols(N, family)
+        prod = ((keys[None, 0:c:2] + s[:, 0:c:2])
+                * (keys[None, 1:c:2] + s[:, 1:c:2]))
+    else:
+        prod = keys[None, :] * s
+    return _split(prod.sum(dim=1))
+
+
+def gf_accumulate_ref(tokens, keys32, family="gf_multilinear"):
+    """(B, N) tokens x (N,) u32 keys (no m1) -> (B, 2) int64 (hi, lo) of the
+    63-bit xor of clmul(k_i, s_i) (HM: clmul(k_2p ^ s_2p, k_2p+1 ^ s_2p+1))."""
+    B, N = single_shapes(tokens, keys32, family, GF_FAMILIES)
+    s = tokens.to(torch.int64) & MASK32
+    k = (keys32.to(torch.int64) & MASK32)[None, :]
+    if family == "gf_multilinear_hm":
+        c = hashed_cols(N, family)
+        prod = gf_core.clmul32(k[:, 0:c:2] ^ s[:, 0:c:2],
+                               k[:, 1:c:2] ^ s[:, 1:c:2])
+    else:
+        prod = gf_core.clmul32(k, s)
+    return _split(xor_reduce(prod))

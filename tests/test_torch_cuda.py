@@ -13,9 +13,12 @@ from _torch_port import ENGINE_FAMILIES, MOD_GRID, engine_case, ragged, rng, t32
 from repro_torch.core import hostref
 from repro_torch.hash import Hasher, HashSpec
 from repro_torch.hash.hasher import planes_to_keys
+from repro_torch.hash import stream_digest_host
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import gf_multihash as gfmh
+from repro_torch.kernels import gf_multilinear as gfk
 from repro_torch.kernels import multihash as mhk
+from repro_torch.kernels import multilinear as mlk
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.gpu
@@ -75,3 +78,41 @@ def test_hasher_on_card_matches_host_twin(cuda, family):
     np.testing.assert_array_equal(
         h.probe_indices(toks, 4097).cpu().numpy(),
         hostref.mod_u64_np(surf, 4097).astype(np.int64))
+
+
+@pytest.mark.parametrize("family", ENGINE_FAMILIES)
+@pytest.mark.parametrize("N", [1, 2, 7, 1024, 4097, 65537])
+@pytest.mark.parametrize("B", [1, 8, 300])
+def test_single_hash_kernel_matches_plain(cuda, family, N, B):
+    """Kernels 3-4 == their plain versions: one and several column tiles
+    (2,048 columns each), odd N (HM hashes floor(N / 2) pairs), row groups
+    cut short, int32 tokens with the sign bit set."""
+    g = rng(0x5EED + N + B)
+    toks = t32(g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32))
+    keys = torch.from_numpy(g.integers(0, 2**64, N, dtype=np.uint64).view(np.int64))
+    gf = family.startswith("gf_")
+    kern, plain = ((gfk.gf_hash_blocks, ref.gf_accumulate_ref) if gf
+                   else (mlk.hash_blocks, ref.multilinear_accumulate_ref))
+    if gf:
+        keys = keys.to(torch.int32)
+    before = mlk.launch_count() + gfk.launch_count()
+    got = kern(toks.to(cuda), keys.to(cuda), family=family)
+    torch.cuda.synchronize()
+    assert mlk.launch_count() + gfk.launch_count() == before + 1
+    assert torch.equal(got.cpu(), plain(toks, keys, family=family))
+    assert torch.equal(got, plain(toks.to(cuda), keys.to(cuda), family=family))
+
+
+def test_stream_digest_on_card_matches_cpu(cuda):
+    spec = HashSpec(family="multilinear", seed=0x57)
+    h = Hasher.from_spec(spec, max_len=256)
+    hc = Hasher.from_spec(spec, max_len=256, device="cpu")
+    toks = t32(rng(6).integers(0, 2**32, 50_000, dtype=np.uint64).astype(np.uint32))
+    st, stc = h.stream(256, 256), hc.stream(256, 256)
+    for a, b in ((0, 1), (1, 300), (300, 49_999), (49_999, 50_000)):
+        before = mlk.launch_count()
+        st = h.update(st, toks[a:b].to(cuda))
+        stc = hc.update(stc, toks[a:b])
+        assert mlk.launch_count() == before + int(b // 256 > a // 256)
+    want = stream_digest_host(h, toks.numpy().view(np.uint32), 256, 256)
+    assert h.digest_int(st) == hc.digest_int(stc) == want

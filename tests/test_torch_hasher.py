@@ -123,9 +123,8 @@ def test_capacity_error_and_ensure():
 
 def test_not_ported_surfaces_raise():
     th, _ = _pair("multilinear")
-    for name in ("stream", "update", "digest", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            getattr(th, name)()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        th.sharded()
 
 
 def test_default_device_is_cuda_and_never_cpu():
