@@ -9,12 +9,16 @@ Drives the port's main path -- keys -> `Hasher` -> fused K-hash CUDA kernels
 top of them -- at a deployment's scale and checks every result:
 
 1. device: the card's name and power limit; nvcc builds the four kernels
-   from the sources in this checkout (timed, with ptxas' register report);
+   from the sources in this checkout (timed, with ptxas' registers and
+   spills -- a spill in an engine kernel fails the run -- and each engine
+   launch's dynamic shared memory);
 2. kernels vs plain versions: every engine family, fixed and ragged rows
-   (L = 0, odd L, L at the thread-stride edge), K in {1, 3, 9, 20}, mod_m in
-   {none, 1, 2^20, 4097, 2^32-1}: `torch.equal` with the plain PyTorch
-   version on the card, and equality with the numpy host twin on a row
-   subsample (an oracle that needs neither the kernels nor JAX);
+   (L = 0, odd L, L just before, at and after the 32-column tile and the
+   column-split edges), N in {300, 1,100} (one column split; four, with the
+   second pass), K in {1, 3, 9, 20}, mod_m in {none, 1, 2^20, 4097,
+   2^32-1}: `torch.equal` with the plain PyTorch version on the card, and
+   equality with the numpy host twin on a row subsample (an oracle that
+   needs neither the kernels nor JAX);
 3. pure path at full width: B = 65,536 x N = 1,024 u32 tokens on the card,
    `Hasher(K=9, out_bits=64)`: `__call__`, `probe_indices(m)` for the m of
    the Bloom filter below, `shard_ids(64)`, for multilinear and
@@ -40,12 +44,20 @@ top of them -- at a deployment's scale and checks every result:
       and the digest of the same stream on the CPU, and each update that
       completes chunks makes exactly one kernel launch;
 5. measurements: phase 3's Hasher outputs against the plain version and
-   each surface's time; each kernel's time (CUDA events, warm repeats)
-   beside its bound and its plain version's time, at the shapes of phases
-   3, 4, 6a and 6b, and the single-hash entry points' times at 6a.
+   each surface's time; each kernel's time (`ms`: CUDA events around 20
+   warm wrapper calls launched from Python, so a short kernel's time
+   includes the host's launch gap; `graph_ms`: the same 20 calls captured
+   in a CUDA graph and replayed, device time without that gap) beside its
+   bound and its plain version's time, at the shapes of phases 3, 4 (the
+   integer engine at K 9, and at K 1 and 3 as ExactDedup and HashPipeline
+   launch it), 6a and 6b, and the single-hash entry points' times at 6a.
+   The carry-less engine's rows also give its design's own floor. An
+   admission-batch row also gives the engine's lane-per-row work over the
+   live work (each warp hashes to its longest row).
 
 The launch counts are set to 0 before phase 3 and read after phase 6: that
-run is the main path. Launches made to compare or to time come after.
+run is the main path (99 engine launches of multihash, 35 of gf_multihash;
+printed per phase). Launches made to compare or to time come after.
 Any failed check exits non-zero. The last line is the JSON device record.
 """
 from __future__ import annotations
@@ -65,6 +77,14 @@ SEED = 0x5EED
 # memory 3.35 TB/s; 32-bit integer instructions 64 lanes/SM x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# shared memory: 128 bytes a clock on each SM (32 banks of 4 bytes).
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
+# The carry-less engine's window-table product (csrc/gf_multihash.cu), for
+# its design floor: 7 Horner steps of a 64-bit shift (2 operations) and a
+# 64-bit xor (2), and the xor into the sum (2): 30 integer operations and 8
+# table reads of 8 bytes a product; a token's 8 nibble offsets (2 operations
+# each) serve its K products.
+GF_TABLE_OPS, GF_NIBBLE_OPS, GF_TABLE_BYTES = 30, 16, 64
 FAMILIES = ("multilinear", "multilinear_2x2", "multilinear_hm",
             "gf_multilinear", "gf_multilinear_hm")
 KERNELS = {
@@ -112,7 +132,7 @@ class Port:
         from repro_torch.core import gf, hostref, keys, limbs
         from repro_torch.data import BloomFilter, ExactDedup, HashPipeline, PipelineConfig
         from repro_torch.hash import Hasher, HashSpec, streaming
-        from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import _build, autotune, ops, ref
         from repro_torch.kernels import gf_multihash as gfmh
         from repro_torch.kernels import gf_multilinear as gfk
         from repro_torch.kernels import multihash as mhk
@@ -124,6 +144,7 @@ class Port:
         self.HashPipeline, self.PipelineConfig = HashPipeline, PipelineConfig
         self.Hasher, self.HashSpec = Hasher, HashSpec
         self.build, self.ops, self.ref = _build, ops, ref
+        self.autotune = autotune
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
         self.single = {"multilinear": mlk.hash_blocks,
@@ -196,6 +217,31 @@ def timed(port: Port, fn, repeats: int) -> float:
     return start.elapsed_time(stop) / repeats
 
 
+def timed_graph(port: Port, fn, repeats: int) -> float:
+    """Mean device milliseconds of fn() over `repeats` calls captured in one
+    CUDA graph and replayed (so a short kernel is not timed by the host's
+    launch rate)."""
+    torch = port.torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats
+
+
 def live_work(lens, N: int) -> tuple[int, int]:
     """(tokens the kernel loads, columns it hashes), summed over the rows.
     A row of code L >= 0 loads its L tokens and hashes L + 1 columns (the
@@ -206,18 +252,52 @@ def live_work(lens, N: int) -> tuple[int, int]:
     return int(np.minimum(lm, N).sum()), int((lm + (lens >= 0)).sum())
 
 
+def lane_work(lens, W: int) -> float:
+    """Columns the engine hashes with one row per lane (each warp of 32
+    consecutive rows runs to its longest row's kend) over the live ones."""
+    lens = np.asarray(lens, np.int64)
+    lm = np.where(lens >= 0, lens, -lens - 1)
+    end = lm + (lens >= 0)
+    kend = np.minimum(end + (end & 1), W)
+    pad = -len(kend) % 32
+    warps = np.concatenate([kend, np.zeros(pad, np.int64)]).reshape(-1, 32)
+    return float(32 * warps.max(axis=1).sum() / max(1, int(end.sum())))
+
+
 def bound(kernel: str, B: int, N: int, W: int, K: int,
           lens) -> tuple[float, str]:
-    """Least time (ms) for the work on the card: the larger of the bytes
-    the call must move (the live tokens of `live_work`, keys and codes
-    read once; slots written once) over the memory rate, and its 32-bit
-    integer operations over the instruction rate: 2 per hashed column and
-    function for the integer kernel (one 64x32-bit multiply-add), 64 for
-    the carry-less one (32 shift-xor steps on a 64-bit value)."""
+    """Least time (ms) for the work on the card, whatever the kernel's
+    design: the larger of the bytes the call must move (the live tokens of
+    `live_work`, keys and codes read once; slots written once) over the
+    memory rate, and, for the integer kernel, its operations: 2 32-bit
+    operations per hashed column and function (one 64x32-bit multiply-add)
+    over the instruction rate (its tensor-core path moves the products to u8
+    MACs; at the main path's shapes the bytes bound is the larger either
+    way). A carry-less product has no instruction on the card and no
+    operation count that holds for every way of computing it, so the
+    carry-less kernel's bound is its bytes; `design_floor` gives the floor
+    of its own design."""
     loaded, hashed = live_work(lens, N)
     nbytes = loaded * 4 + K * (W + 1) * 8 + B * 4 + B * K * 2 * 8
-    per = 64 if kernel == "gf_multihash" else 2
-    return _least_ms(nbytes, per * hashed * K)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 0.0 if kernel == "gf_multihash" else 2 * hashed * K / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def design_floor(B: int, N: int, W: int, K: int, lens) -> tuple[float, str]:
+    """Least time (ms) of the carry-less engine's plain families in their
+    own design, the 4-bit window table (csrc/gf_multihash.cu): the largest
+    of the bytes bound, its integer operations (GF_TABLE_OPS a product,
+    GF_NIBBLE_OPS a column) over the instruction rate ("operations") and its
+    table reads (GF_TABLE_BYTES a product) over the shared-memory rate
+    ("shared memory"). Not a bound on the function: another product form
+    could go below it."""
+    hashed = live_work(lens, N)[1]
+    t = {"bytes": bound("gf_multihash", B, N, W, K, lens)[0] / 1e3,
+         "operations": (GF_TABLE_OPS * K + GF_NIBBLE_OPS) * hashed / INT32_OPS_PER_S,
+         "shared memory": GF_TABLE_BYTES * K * hashed / SMEM_BYTES_PER_S}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
 
 
 def single_bound(family: str, B: int, N: int, port: Port) -> tuple[float, str]:
@@ -259,10 +339,18 @@ def build_kernels(port: Port) -> dict:
           + ")")
     for name, entry in log.items():
         for line in entry["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
+        if name in ("multihash", "gf_multihash"):
+            spills = [ln for ln in entry["ptxas"].splitlines() if "spill" in ln]
+            check(all("0 bytes spill stores, 0 bytes spill loads" in ln
+                      for ln in spills), f"{name}: ptxas reports spills")
     for name in port.build.KERNELS:
         port.build.load(name)
+    for name in ("multihash", "gf_multihash"):
+        print(f"  {name}: dynamic shared memory per block (bytes): " + ", ".join(
+            f"K={k}{' HM' if hm else ''} {port.build.engine_smem(name, k, hm)}"
+            for k in (1, 3, 9, 20) for hm in (False, True)))
     return log
 
 
@@ -270,14 +358,21 @@ def build_kernels(port: Port) -> dict:
 # phase 2
 # --------------------------------------------------------------------------
 
-def kernel_vs_plain(port: Port, device, B=256, N=300) -> dict:
-    """Every family x fixed/ragged x K x mod_m: kernel == plain == host twin.
-    Returns {kernel: max |kernel - plain|}."""
+def kernel_vs_plain(port: Port, device, B=256, widths=(300, 1100)) -> dict:
+    """Every family x fixed/ragged x K x mod_m, at N = 300 (one column
+    split) and N = 1,100 (four splits and the second pass): kernel == plain
+    == host twin. Ragged rows end just before, at and after the 32-column
+    tile and the split edges. Returns {kernel: max |kernel - plain|}."""
     torch = port.torch
     g = np.random.default_rng(SEED)
-    edge = [0, 1, 2, 3, 127, 128, 129, 255, 256, 257, N - 1, N]
     errs = {"multihash": 0, "gf_multihash": 0}
-    for K in (1, 3, 9, 20):
+    for N, K in ((N, K) for N in widths for K in (1, 3, 9, 20)):
+        splits = {port.wrappers["multihash"].split_of(k, B, N + 2, device)
+                  for k in errs}
+        edge = sorted(x for x in {0, 1, 2, 3, 31, 32, 33, 63, 64, 65, 127, 128,
+                                  129, N - 1, N} | {s + d for s in splits
+                                                    for d in (-2, -1, 0, 1)}
+                      if x <= N)
         W = N + 2  # even, and room for the sentinel of a full row
         toks = g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32)
         keys_u64 = g.integers(0, 2**64, (K, W + 1), dtype=np.uint64)
@@ -307,7 +402,7 @@ def kernel_vs_plain(port: Port, device, B=256, N=300) -> dict:
                     want = port.plain(family, t_toks, t_keys, t_lens,
                                       mod_m=mod_m, width=W)
                     torch.cuda.synchronize()
-                    what = f"{family} K={K} mod_m={mod_m}"
+                    what = f"{family} N={N} K={K} mod_m={mod_m}"
                     check(torch.equal(got, want), f"kernel != plain: {what}")
                     name = port.kernel_of(family)
                     errs[name] = max(errs[name],
@@ -323,7 +418,8 @@ def kernel_vs_plain(port: Port, device, B=256, N=300) -> dict:
                     check(np.array_equal(s[..., 0], host0)
                           and np.array_equal(s[..., 1], host1),
                           f"kernel != host twin: {what}")
-    print(f"kernel == plain == host twin in {2 * 4 * len(FAMILIES) * 5} cases; "
+    print(f"kernel == plain == host twin in "
+          f"{len(widths) * 2 * 4 * len(FAMILIES) * 5} cases; "
           f"max |kernel - plain| {errs}")
     return errs
 
@@ -399,7 +495,7 @@ def admission(port: Port, device, batches, card: str) -> dict:
     report = {}
 
     def drive(label, family, admit_batch, rejected):
-        admitted, t0 = 0, time.perf_counter()
+        admitted, c0, t0 = 0, port.counts(), time.perf_counter()
         for docs, planted in batches:
             verdict = one_launch(port, family, lambda: admit_batch(docs))
             rej = rejected(verdict)
@@ -407,11 +503,14 @@ def admission(port: Port, device, batches, card: str) -> dict:
                   f"{label}: a planted repeat was admitted")
             admitted += int((~rej).sum())
         dt = time.perf_counter() - t0
+        launched = {k: v - c0[k] for k, v in port.counts().items() if v > c0[k]}
         report[label] = {"docs_per_s": n_docs / dt, "tokens_per_s": n_tokens / dt,
-                         "seconds": dt, "admitted": admitted}
+                         "seconds": dt, "admitted": admitted,
+                         "launches": launched}
         print(f"{label}: {n_docs} docs, {n_tokens} tokens in {dt:.3f} s: "
               f"{n_docs / dt} docs/s, {n_tokens / dt} tokens/s ({card}); "
-              f"admitted {admitted} of {n_docs - n_planted} unique")
+              f"admitted {admitted} of {n_docs - n_planted} unique; "
+              f"launches {launched}")
         return admitted
 
     for family in ("multilinear", "gf_multilinear"):
@@ -578,26 +677,41 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
                    "K": K, "ms": timed(port, fn, 20), "card": card}
             rows.append(row)
             print(json.dumps(row))
-        shapes = [("pure", toks, code, W, pure["m"]),
-                  ("pure-nomod", toks, code, W, None),
-                  ("admit-batch", t_dense, t_lens_b, W_b, None)]
-        for label, t, ln, width, mod_m in shapes:
-            run = lambda: port.ops.multihash(t, keys, ln, family=family,  # noqa: E731
+        shapes = [("pure", toks, h.keys, code, W, pure["m"]),
+                  ("pure-nomod", toks, h.keys, code, W, None),
+                  ("admit-batch", t_dense, keys, t_lens_b, W_b, None)]
+        if family == "multilinear":  # the ExactDedup and HashPipeline launches
+            shapes += [(f"admit-batch-K{k}", t_dense, port.Hasher.from_spec(
+                port.HashSpec(family=family, n_hashes=k, out_bits=64, seed=SEED),
+                device=device)._keys_for_width(W_b), t_lens_b, W_b, None)
+                for k in (1, 3)]
+        for label, t, kt, ln, width, mod_m in shapes:
+            run = lambda: port.ops.multihash(t, kt, ln, family=family,  # noqa: E731
                                              mod_m=mod_m, width=width)
             got = run()
-            want = port.plain(family, t, keys, ln, mod_m=mod_m, width=width)
+            want = port.plain(family, t, kt, ln, mod_m=mod_m, width=width)
             check(torch.equal(got, want), f"{family} {label}: kernel != plain")
             err = int((got - want).abs().max().item())
             del got, want
-            ms = timed(port, run, 20)
+            ms, graph_ms = timed(port, run, 20), timed_graph(port, run, 20)
             plain_ms = timed(port, lambda: port.plain(
-                family, t, keys, ln, mod_m=mod_m, width=width), 2)
-            b_ms, b_by = bound(name, t.shape[0], t.shape[1], width, K,
-                               ln.cpu().numpy())
+                family, t, kt, ln, mod_m=mod_m, width=width), 2)
+            k, lens_np = kt.shape[0], ln.cpu().numpy()
+            b_ms, b_by = bound(name, t.shape[0], t.shape[1], width, k, lens_np)
+            extra = {}
+            if name == "gf_multihash":
+                extra["design_floor_ms"], extra["design_floor_by"] = design_floor(
+                    t.shape[0], t.shape[1], width, k, lens_np)
+            if label.startswith("admit-batch"):
+                extra["lane_per_row_work"] = lane_work(lens_np, width)
             row = {"kernel": name, "family": family, "shape": label,
-                   "B": t.shape[0], "W": width, "K": K, "mod_m": mod_m,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "max_abs_err": err}
+                   "B": t.shape[0], "W": width, "K": k, "mod_m": mod_m,
+                   "splits": port.autotune.engine_splits(
+                       width, port.wrappers["multihash"].split_of(
+                           name, t.shape[0], width, device)),
+                   "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, **extra,
+                   "max_abs_err": err}
             rows.append(row)
             print(json.dumps(row))
             if label == "pure":
@@ -605,8 +719,11 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
                     "name": name, "route": "cuda", "source": KERNELS[name][0],
                     "replaces": KERNELS[name][1], "launches": launches[name],
                     "matches_plain": err == 0,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                    "max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    **{key: v for key, v in extra.items()
+                       if key.startswith("design_floor")},
+                    "library_ms": None}
         # the host part of one admission batch beside its launch
         bf_h = port.Hasher.from_spec(port.HashSpec(
             family=family, n_hashes=K, out_bits=64, seed=SEED), device=device)
@@ -635,13 +752,13 @@ def measure_single(port: Port, device, shapes: dict, launches: dict,
             check(torch.equal(got, want), f"{family} {label}: kernel != plain")
             err = int((got - want).abs().max().item())
             del got, want
-            ms = timed(port, run, 20)
+            ms, graph_ms = timed(port, run, 20), timed_graph(port, run, 20)
             plain_ms = timed(port, lambda: port.plain_single(
                 family, toks, keys[1:]), 2)
             b_ms, b_by = single_bound(family, B, N, port)
             row = {"kernel": name, "family": family, "shape": label, "B": B,
-                   "N": N, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "max_abs_err": err}
+                   "N": N, "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
             rows.append(row)
             print(json.dumps(row))
             if label == "6a" and family == name:
@@ -649,8 +766,8 @@ def measure_single(port: Port, device, shapes: dict, launches: dict,
                     "name": name, "route": "cuda", "source": KERNELS[name][0],
                     "replaces": KERNELS[name][1], "launches": launches[name],
                     "matches_plain": err == 0, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None}
+                    "graph_ms": graph_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None}
     res = shapes["6a"]
     toks, hi, lo = res["tokens"], res["hi"], res["lo"]
     for family in FAMILIES:
@@ -696,8 +813,12 @@ def main() -> int:
         port.reset_counts()
         with phase("phase 3: pure path at full width"):
             pure = pure_path(port, device, B, N, K)
+        per_shape = {"3: B 65,536 x N 1,024, K 9": port.counts()}
         with phase("phase 4: admission"):
             admit = admission(port, device, batches, card)
+        per_shape.update({f"4: {label}, B 8,192 ragged": r["launches"]
+                          for label, r in admit.items()})
+        before6 = port.counts()
         with phase("phase 6a: single hash, many strings"):
             single = {"6a": single_path(port, device, 65536, 1024, 256)}
         with phase("phase 6b: single hash, long strings"):
@@ -708,9 +829,17 @@ def main() -> int:
         with phase("phase 6c: streaming fingerprints"):
             stream = streaming(port, device)
         launches = port.counts()
+        per_shape["6: single hash and streaming"] = {
+            k: v - before6[k] for k, v in launches.items() if v > before6[k]}
         print(f"main path launches: {launches}")
+        for label, c in per_shape.items():
+            print(f"  launches in phase {label}: "
+                  + json.dumps({k: v for k, v in c.items() if v}))
         check(all(v > 0 for v in launches.values()),
               "a kernel of the main path was never launched")
+        check(launches["multihash"] == 99 and launches["gf_multihash"] == 35,
+              "engine launches on the main path != 99 (multihash), 35 "
+              "(gf_multihash): one launch per call and per batch")
         with phase("phase 5: measurements"):
             kernels, rows = measure(port, device, pure, batches[0], K, launches,
                                     card)
@@ -722,6 +851,7 @@ def main() -> int:
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "rows": rows, "admission": admit,
+             "launches_per_shape": per_shape,
              "stream": stream, "kernels": kernels}, indent=1))
         print(f"total {time.perf_counter() - t_start:.3f} s wall; card {card}")
         print(json.dumps({"kernels": kernels}))

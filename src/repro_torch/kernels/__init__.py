@@ -7,7 +7,7 @@ gf_multilinear.py -- single-hash kernel, GF(2^32) families (csrc/gf_multilinear.
 ref.py            -- plain PyTorch versions (the CPU path and the card's oracle)
 ops.py            -- engine dispatch + launch count; multilinear_hash, gf_hash,
                      hash_tokens_batched
-autotune.py       -- fixed launch configurations, pow2 bucketing
+autotune.py       -- launch configurations, the engine's column split, pow2 bucketing
 _build.py         -- nvcc build into build/repro_torch_kernels/ + ctypes loader
 """
 from . import autotune, gf_multihash, gf_multilinear, multihash, multilinear, ops, ref  # noqa: F401

@@ -26,9 +26,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The fused K-hash engine's C signature:
-# int repro_<name>(tokens, keys, lens, out, B, N, W, K, ldk, pairwise, mod_m,
-#                  stream)
-_ENGINE = [_P] * 4 + [_I] * 4 + [ctypes.c_longlong, _I, ctypes.c_ulonglong, _P]
+# int repro_<name>(tokens, keys, lens, out, part, B, N, W, K, ldk, pairwise,
+#                  split, mod_m, stream)
+_ENGINE = ([_P] * 5 + [_I] * 4
+           + [ctypes.c_longlong, _I, _I, ctypes.c_ulonglong, _P])
 # The single-hash kernels' C signature:
 # int repro_<name>(tokens, keys, part, out, B, N, pairwise, stream)
 _SINGLE = [_P] * 4 + [_I] * 3 + [_P]
@@ -106,6 +107,14 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def engine_smem(name: str, K: int, pairwise: bool) -> int:
+    """Dynamic shared memory (bytes) of one block of engine kernel `name`
+    for K functions, as its C side `repro_<name>_smem` computes it."""
+    fn = getattr(load(name), f"repro_{name}_smem")
+    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
+    return int(fn(K, int(pairwise)))
 
 
 def launch(name: str, device, *args) -> None:

@@ -3,16 +3,28 @@
 The reference sweeps (block_b, block_n) tiles and persists the best per
 problem bucket (`repro.kernels.autotune`). On the card the port compiles
 one fixed configuration into the kernels (as `-D` defines, see
-`_build.py`): in the fused multi-hash engine each block owns `rows` token
-rows and the whole column loop; in the single-hash kernels a block owns a
-`tile` of columns for `rows` rows. A measured sweep and its cache are
-still to be ported (ROADMAP Queue 1).
+`_build.py`): in the fused multi-hash engine a block owns one token row
+per thread and a split of the columns that `engine_split` picks from the
+shape; in the single-hash kernels a block owns a `tile` of columns for
+`rows` rows. A measured sweep with its cache is still to be ported
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-#: threads per block, rows per block, and hash functions per register pass
-#: (K is looped in chunks of `k_chunk`; any K >= 1 works).
-LAUNCH = {"threads": 128, "rows": 4, "k_chunk": 8}
+import functools
+
+#: fused multi-hash engine (csrc/engine_tile.cuh): threads per block of the
+#: integer and the carry-less kernel, one row per thread, and the blocks an
+#: SM must hold (the kernels' launch bounds). The column tile is fixed at
+#: 32, and K runs in register chunks of 1, 3 or 9.
+ENGINE = {"int_threads": 128, "int_min_blocks": 4,
+          "gf_threads": 256, "gf_min_blocks": 2}
+ENGINE_TILE = 32
+#: the fewest columns a split takes, so a split's staging and epilogue stay
+#: small beside its hashing, and the most (`csrc/engine_tile.cuh`
+#: ET_MAX_SPLIT: the integer tensor-core path's s32 sums stay exact).
+ENGINE_MIN_SPLIT = 256
+ENGINE_MAX_SPLIT = 8192
 #: single-hash kernels (csrc/single_hash.cuh): threads per block, rows per
 #: block and columns per tile (the tile's keys sit in shared memory).
 SINGLE = {"threads": 256, "rows": 32, "tile": 2048}
@@ -30,7 +42,51 @@ def single_tiles(cols: int) -> int:
     return max(1, -(-cols // SINGLE["tile"]))
 
 
+def _engine(kernel: str, key: str) -> int:
+    return ENGINE[("gf_" if kernel == "gf_multihash" else "int_") + key]
+
+
+def engine_rows(kernel: str) -> int:
+    """Rows per block of engine kernel `kernel` (multihash, gf_multihash)."""
+    return _engine(kernel, "threads")
+
+
+def engine_fill(kernel: str, sms: int) -> int:
+    """Blocks of engine kernel `kernel` that fill a card of `sms` SMs: as
+    many as its launch bounds make each SM hold."""
+    return sms * _engine(kernel, "min_blocks")
+
+
+@functools.lru_cache(maxsize=1024)
+def engine_split(B: int, W: int, rows: int, fill: int) -> int:
+    """Columns per split of a fused multi-hash launch over B rows of width
+    W, `rows` rows per block, on a card that `fill` blocks fill
+    (`engine_fill`): all W (one split, the kernel runs the epilogue itself)
+    when the row blocks alone fill the card; else the split count, up to
+    the one that reaches `fill` blocks and with splits of at least
+    `ENGINE_MIN_SPLIT` columns, whose waves of blocks take the least time
+    (waves / splits; the fewest splits on a tie). A split is a multiple of
+    the 32-column tile and never more than `ENGINE_MAX_SPLIT` columns. A
+    second pass then combines the splits exactly (`csrc/engine_tile.cuh`)."""
+    row_blocks = max(1, -(-B // rows))
+    most = max(1, min(-(-fill // row_blocks), W // ENGINE_MIN_SPLIT))
+    best = 1
+    for s in range(2, most + 1):
+        # waves(s) / s < waves(best) / best
+        if -(-s * row_blocks // fill) * best < -(-best * row_blocks // fill) * s:
+            best = s
+    splits = max(best, -(-W // ENGINE_MAX_SPLIT))
+    cols = -(-W // splits)
+    return max(ENGINE_TILE, -(-cols // ENGINE_TILE) * ENGINE_TILE)
+
+
+def engine_splits(W: int, split: int) -> int:
+    """Splits of W columns at `split` columns each (at least one), as the
+    kernel's launcher counts them."""
+    return -(-W // split) if W > split else 1
+
+
 def nvcc_defines() -> list[str]:
     """The launch configurations as nvcc `-D` flags."""
-    return ([f"-DMH_{k.upper()}={v}" for k, v in LAUNCH.items()]
+    return ([f"-DET_{k.upper()}={v}" for k, v in ENGINE.items()]
             + [f"-DSH_{k.upper()}={v}" for k, v in SINGLE.items()])

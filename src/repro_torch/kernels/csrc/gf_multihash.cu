@@ -12,23 +12,33 @@
 // (h32, acc >> 32), or with mod_m != 0 (((h32 << 32) | acc_hi) % mod_m, h32),
 // as int64 values into out (B, K, 2).
 //
-// What bounds it: operations. Hopper has no carry-less multiply, so each
-// 32x32 -> 63-bit product is 32 shift-mask-xor steps on a u64, about 32x
-// the work per token of the integer kernel, far above what the bytes (one
-// 4-byte token read for all K) cost. Design: the same block layout as
-// multihash.cu (a block owns MH_ROWS rows and the whole column loop, threads
-// stride over columns, keys read once per block for all its rows, K in
-// register chunks); the product is the reference's partial-product planes
-// done bit-serially in registers; xor is exact in any order, so the warp
-// shuffle + shared-memory reduction is bit-identical to the plain version.
-// Window tables and an int8 tensor-core form of the planes are for later.
-#include "engine_common.cuh"
+// What bounds it: operations. Hopper has no carry-less multiply; done
+// bit-serially a 32x32 -> 63-bit product is 32 shift-mask-xor steps on a
+// u64, far more than the 4 bytes of a token cost. Design (engine_tile.cuh):
+// a lane owns a row and its K sums, tokens are staged in shared memory with
+// the length code applied, and no lanes are reduced across (xor is exact in
+// any order). The key at column c is the same for every row, so the block
+// turns it into a 4-bit window table once per tile, shared by its 256 rows:
+// T[v] = clmul(key, v) for v < 16 (16 u64 of at most 35 bits, 128 bytes, so
+// 32 lanes reading any nibbles of one table hit 32 banks without conflict).
+// A product is then eight lookups in Horner form, r = T[n7], r = (r << 4) ^
+// T[n_j] for j = 6..0 (at most 63 bits), about 4 integer operations and one
+// 8-byte shared-memory read each; a token's eight nibble offsets are shared
+// by its K products. The tables of 16 columns (ET_TABLE_COLS) are built
+// at a time, which keeps a 256-row block's shared memory small enough for
+// two blocks an SM. What holds it is the design's own floor: its integer
+// operations and its 64 bytes of table reads a product (the shared-memory
+// rate), far above the bytes. The HM pair term has no fixed operand (both
+// factors carry a token), so it keeps the bit-serial clmul32 on broadcast
+// keys.
+#include "engine_tile.cuh"
+
+// Set by kernels/autotune.py::ENGINE, which also sizes the column split.
+#if !defined(ET_GF_THREADS) || !defined(ET_GF_MIN_BLOCKS)
+#error "ET_GF_*: build with repro_torch/kernels/_build.py"
+#endif
 
 #define GF_POLY_LOW 0xC5u
-
-struct XorOp {
-  __device__ __forceinline__ u64 operator()(u64 a, u64 b) const { return a ^ b; }
-};
 
 // Product with the 33-bit p = 2^32 + POLY_LOW; a < 2^31 here.
 __device__ __forceinline__ u64 clmul_poly(u64 a) {
@@ -41,97 +51,86 @@ __device__ __forceinline__ u32 barrett(u64 acc) {
   return (u32)((acc ^ clmul_poly(q3)) & 0xffffffffull);
 }
 
-template <bool PAIRWISE>
-__global__ void __launch_bounds__(MH_THREADS)
-gf_multihash_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
-                    const int* __restrict__ lens, long long* __restrict__ out,
-                    int B, int N, int W, int K, long long ldk, u64 mod_m) {
-  __shared__ u64 part[MH_THREADS / 32][MH_ROWS][MH_K_CHUNK];
-  const int row0 = blockIdx.x * MH_ROWS;
-  RowCode rc[MH_ROWS];
-#pragma unroll
-  for (int r = 0; r < MH_ROWS; ++r) rc[r] = row_code(tokens, lens, row0 + r, B, N);
+struct GfEngine {
+  static constexpr int THREADS = ET_GF_THREADS;  // rows per block
+  static constexpr int MIN_BLOCKS = ET_GF_MIN_BLOCKS;  // as in multihash.cu
 
-  for (int k0 = 0; k0 < K; k0 += MH_K_CHUNK) {
-    const int kn = min(MH_K_CHUNK, K - k0);
-    const u64* kbase = keys + (size_t)k0 * ldk + 1;  // column 0 is m1
-    u64 acc[MH_ROWS][MH_K_CHUNK];
-#pragma unroll
-    for (int r = 0; r < MH_ROWS; ++r)
-#pragma unroll
-      for (int kk = 0; kk < MH_K_CHUNK; ++kk) acc[r][kk] = 0;
+  static __device__ __forceinline__ u64 add(u64 a, u64 b) { return a ^ b; }
 
-    if (!PAIRWISE) {
-      // Dead key lanes need no mask: clmul(key, 0) = 0 and tok_eff is 0 there.
-      for (int c = threadIdx.x; c < W; c += MH_THREADS) {
-        u32 key[MH_K_CHUNK];
-#pragma unroll
-        for (int kk = 0; kk < MH_K_CHUNK; ++kk)
-          key[kk] = kk < kn ? (u32)kbase[(size_t)kk * ldk + c] : 0u;
-#pragma unroll
-        for (int r = 0; r < MH_ROWS; ++r) {
-          const u32 t = (u32)tok_at(rc[r], c, N);
-#pragma unroll
-          for (int kk = 0; kk < MH_K_CHUNK; ++kk)
-            if (kk < kn) acc[r][kk] ^= clmul32(key[kk], t);
-        }
-      }
-    } else {
-      // HM lane pairs; a dead pair contributes clmul(0 ^ 0, 0 ^ 0) = 0.
-      for (int c = 2 * threadIdx.x; c < W; c += 2 * MH_THREADS) {
-        u32 ka[MH_K_CHUNK], kb[MH_K_CHUNK];
-#pragma unroll
-        for (int kk = 0; kk < MH_K_CHUNK; ++kk) {
-          ka[kk] = kk < kn ? (u32)kbase[(size_t)kk * ldk + c] : 0u;
-          kb[kk] = kk < kn ? (u32)kbase[(size_t)kk * ldk + c + 1] : 0u;
-        }
-#pragma unroll
-        for (int r = 0; r < MH_ROWS; ++r) {
-          const bool live = c < rc[r].kend;
-          const u32 s0 = (u32)tok_at(rc[r], c, N), s1 = (u32)tok_at(rc[r], c + 1, N);
-#pragma unroll
-          for (int kk = 0; kk < MH_K_CHUNK; ++kk)
-            if (kk < kn && live) acc[r][kk] ^= clmul32(ka[kk] ^ s0, kb[kk] ^ s1);
-        }
-      }
-    }
+  // Plain: the window tables of a chunk, tab[kk][j][v] = clmul(key of
+  // function kk at column j, v) for v < 16, for the ET_TABLE_COLS columns
+  // from kc (kc[j * KCP + kk] is a staged key). HM: no table; the pair term
+  // reads the staged keys.
+  static constexpr bool HAS_MMA = false;
 
-    u64 total = 0;
-    block_reduce(acc, part, &total, XorOp());
-    if (threadIdx.x < MH_ROWS * MH_K_CHUNK) {
-      const int r = threadIdx.x / MH_K_CHUNK, kk = threadIdx.x % MH_K_CHUNK;
-      const int b = row0 + r;
-      if (b < B && kk < kn) {
-        const int k = k0 + kk;
-        const u64 a = total ^ (keys[(size_t)k * ldk] & 0xffffffffull);  // m1 lo
-        const u32 h32 = barrett(a);
-        const u32 acc_hi = (u32)(a >> 32);
-        long long* o = out + ((size_t)b * K + k) * 2;
-        if (mod_m) {
-          o[0] = (long long)((((u64)h32 << 32) | acc_hi) % mod_m);
-          o[1] = (long long)h32;
-        } else {
-          o[0] = (long long)h32;
-          o[1] = (long long)acc_hi;
-        }
-      }
+  template <int KC, bool PAIRWISE, bool MMA>
+  static __host__ __device__ constexpr size_t table_bytes() {
+    return PAIRWISE ? 0 : (size_t)KC * ET_TABLE_COLS * 16 * 8;
+  }
+
+  template <int KC>
+  static __device__ __forceinline__ void build(u64* tab, const u64* kc, int tid) {
+    for (int i = tid; i < KC * ET_TABLE_COLS * 16; i += THREADS) {
+      const int v = i & 15, j = (i >> 4) % ET_TABLE_COLS, kk = (i >> 4) / ET_TABLE_COLS;
+      const u64 k = kc[j * et_kcp<KC>() + kk] & 0xffffffffull;
+      tab[i] = ((v & 1) ? k : 0ull) ^ ((v & 2) ? k << 1 : 0ull) ^
+               ((v & 4) ? k << 2 : 0ull) ^ ((v & 8) ? k << 3 : 0ull);
     }
   }
-}
+
+  template <int KC>
+  static __device__ __forceinline__ void column(u64 (&acc)[KC], const u64* tab,
+                                                int j, u32 t) {
+    const u64* tj = tab + j * 16;
+    int nib[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) nib[n] = (t >> (4 * n)) & 15u;
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const u64* T = tj + kk * (ET_TABLE_COLS * 16);
+      u64 r = T[nib[7]];
+#pragma unroll
+      for (int n = 6; n >= 0; --n) r = (r << 4) ^ T[nib[n]];
+      acc[kk] ^= r;
+    }
+  }
+
+  template <int KC>
+  static __device__ __forceinline__ void pair(u64 (&acc)[KC], const u64* kd,
+                                              int j, u32 s0, u32 s1, bool live) {
+    const u64* ka = kd + j * et_kcp<KC>();
+    const u64* kb = ka + et_kcp<KC>();
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const u64 p = clmul32((u32)ka[kk] ^ s0, (u32)kb[kk] ^ s1);
+      acc[kk] ^= live ? p : 0ull;
+    }
+  }
+
+  static __device__ __forceinline__ void finish(u64 total, u64 m1, u64 mod_m,
+                                                u64 mu, long long* o) {
+    const u64 a = total ^ (m1 & 0xffffffffull);  // m1 lo
+    const u32 h32 = barrett(a);
+    const u32 acc_hi = (u32)(a >> 32);
+    if (mod_m) {
+      o[0] = (long long)mod_by(((u64)h32 << 32) | acc_hi, mod_m, mu);
+      o[1] = (long long)h32;
+    } else {
+      o[0] = (long long)h32;
+      o[1] = (long long)acc_hi;
+    }
+  }
+};
 
 extern "C" int repro_gf_multihash(const void* tokens, const void* keys,
-                                  const void* lens, void* out, int B, int N,
-                                  int W, int K, long long ldk, int pairwise,
+                                  const void* lens, void* out, void* part,
+                                  int B, int N, int W, int K, long long ldk,
+                                  int pairwise, int split,
                                   unsigned long long mod_m, void* stream) {
-  const dim3 grid((B + MH_ROWS - 1) / MH_ROWS);
-  cudaStream_t s = (cudaStream_t)stream;
-  const u32* t = (const u32*)tokens;
-  const u64* k = (const u64*)keys;
-  const int* l = (const int*)lens;
-  long long* o = (long long*)out;
-  if (pairwise)
-    gf_multihash_kernel<true><<<grid, MH_THREADS, 0, s>>>(t, k, l, o, B, N, W, K, ldk, mod_m);
-  else
-    gf_multihash_kernel<false><<<grid, MH_THREADS, 0, s>>>(t, k, l, o, B, N, W, K, ldk, mod_m);
-  return (int)cudaGetLastError();
+  return launch_engine<GfEngine>(tokens, keys, lens, out, part, B, N, W, K,
+                                 ldk, pairwise, split, mod_m, stream);
+}
+
+extern "C" long long repro_gf_multihash_smem(int K, int pairwise) {
+  return (long long)engine_smem_bytes<GfEngine>(K, pairwise);
 }

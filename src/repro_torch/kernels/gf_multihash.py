@@ -12,10 +12,8 @@ tensor runs the plain version `ref.gf_multihash_ref`. Nothing else falls back.
 """
 from __future__ import annotations
 
-import torch
-
-from ..core.limbs import as_plan
-from . import _build, ref
+from . import ref
+from .multihash import launch_engine
 
 _LAUNCHES = [0]
 
@@ -37,15 +35,9 @@ def gf_multihash(tokens, keys, lens, *, family="gf_multilinear",
                                     mod_m=mod_m, width=width)
     if tokens.device.type != "cuda":
         raise ValueError(f"no gf_multihash kernel for device {tokens.device}")
-    B, N, K, W = ref.engine_shapes(tokens, keys, lens, width, family)
+    W = ref.engine_shapes(tokens, keys, lens, width, family)[3]
     if family not in ref.GF_FAMILIES:
         raise ValueError(f"{family!r} is not a carry-less engine family")
-    plan = as_plan(mod_m)
-    out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
-    if B == 0:
-        return out
-    _build.launch("gf_multihash", tokens.device, tokens, keys, lens, out,
-                  B, N, W, K, keys.stride(0), int(family in ref.PAIRWISE),
-                  0 if plan is None else plan.m)
-    _LAUNCHES[0] += 1
+    out = launch_engine("gf_multihash", tokens, keys, lens, family, mod_m, W)
+    _LAUNCHES[0] += int(out.shape[0] > 0)
     return out

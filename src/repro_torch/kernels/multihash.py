@@ -10,10 +10,12 @@ tensor runs the plain version `ref.multihash_ref`. Nothing else falls back.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.limbs import as_plan
-from . import _build, ref
+from . import _build, autotune, ref
 
 _LAUNCHES = [0]
 
@@ -35,15 +37,47 @@ def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
                                  mod_m=mod_m, width=width)
     if tokens.device.type != "cuda":
         raise ValueError(f"no multihash kernel for device {tokens.device}")
-    B, N, K, W = ref.engine_shapes(tokens, keys, lens, width, family)
+    W = ref.engine_shapes(tokens, keys, lens, width, family)[3]
     if family not in ref.INT_FAMILIES:
         raise ValueError(f"{family!r} is not an integer engine family")
+    out = launch_engine("multihash", tokens, keys, lens, family, mod_m, W)
+    _LAUNCHES[0] += int(out.shape[0] > 0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_of(name: str, B: int, W: int, device) -> int:
+    """Columns per split that `launch_engine` gives engine kernel `name`
+    for B rows of width W on CUDA `device` (`autotune.engine_split`, filled
+    to the device's SMs)."""
+    return autotune.engine_split(B, W, autotune.engine_rows(name),
+                                 autotune.engine_fill(name, _sm_count(device)))
+
+
+def launch_engine(name: str, tokens, keys, lens, family: str, mod_m,
+                  W: int) -> torch.Tensor:
+    """Launch engine kernel `name` on validated CUDA operands -> (B, K, 2)
+    int64 slots. Above one column split (`autotune.engine_split`) the
+    per-split partial sums go to a scratch tensor and the kernel's second
+    pass combines them; it is one call of the C launcher either way."""
+    B, N = tokens.shape
+    K = keys.shape[0]
+    rows = autotune.engine_rows(name)
+    if -(-B // rows) > 65535:
+        raise ValueError(f"{B} rows exceed the kernel grid's row blocks")
     plan = as_plan(mod_m)
     out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
     if B == 0:
         return out
-    _build.launch("multihash", tokens.device, tokens, keys, lens, out,
-                  B, N, W, K, keys.stride(0), int(family in ref.PAIRWISE),
+    split = split_of(name, B, W, tokens.device)
+    splits = autotune.engine_splits(W, split)
+    part = (torch.empty((splits, K, B), dtype=torch.int64, device=tokens.device)
+            if splits > 1 else out)  # unused with one split
+    _build.launch(name, tokens.device, tokens, keys, lens, out, part, B, N, W,
+                  K, keys.stride(0), int(family in ref.PAIRWISE), split,
                   0 if plan is None else plan.m)
-    _LAUNCHES[0] += 1
     return out

@@ -14,7 +14,7 @@ from repro_torch.core import hostref
 from repro_torch.hash import Hasher, HashSpec
 from repro_torch.hash.hasher import planes_to_keys
 from repro_torch.hash import stream_digest_host
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 from repro_torch.kernels import gf_multihash as gfmh
 from repro_torch.kernels import gf_multilinear as gfk
 from repro_torch.kernels import multihash as mhk
@@ -61,6 +61,92 @@ def test_kernel_matches_plain(cuda, family, ragged_rows, mod_m, K):
                                              family=family, mod_m=mod_m,
                                              width=width)
     assert torch.equal(got, plain_on_card)
+
+
+@pytest.mark.parametrize("family", ENGINE_FAMILIES)
+@pytest.mark.parametrize("K", [1, 3, 9, 20])
+@pytest.mark.parametrize("N", [100, 1100])  # one column split; four
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 129, 8192])
+def test_engine_tile_edges_match_plain(cuda, family, K, N, B):
+    """The engine's layout edges: row blocks (128 or 256 rows) cut short, widths
+    across the 32-column tile and the column split (on at N 1,100, where a
+    second pass combines four splits), ragged rows whose kend lies just
+    before, at and after a tile or split edge, codes 0 and -1, every mod_m."""
+    g = rng(0xED6E + 7 * B + N + K)
+    W = N + 2
+    kernel = "gf_multihash" if family.startswith("gf_") else "multihash"
+    split = mhk.split_of(kernel, B, W, cuda)
+    splits = autotune.engine_splits(W, split)
+    assert (splits > 1) == (N == 1100)
+    edge = [0, -1, 30, 31, 32, 33, 34, 62, 63, 64, 65, split - 2, split - 1,
+            split, split + 1, N - 1, N, -(N + 1), -33, -34]
+    edge = [e for e in edge if -(N + 1) <= e <= N]
+    lens = g.integers(-(N + 1), N + 1, size=B).astype(np.int32)
+    lens[:min(B, len(edge))] = (g.permutation(edge) if B < len(edge)
+                                else edge)[:min(B, len(edge))]
+    toks = t32(g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32))
+    keys = torch.from_numpy(g.integers(0, 2**64, (K, W + 1),
+                                       dtype=np.uint64).view(np.int64))
+    args = [a.to(cuda) for a in (toks, keys, torch.from_numpy(lens))]
+    plain = ref.gf_multihash_ref if family.startswith("gf_") else ref.multihash_ref
+    for mod_m in MOD_GRID:
+        before = mhk.launch_count() + gfmh.launch_count()
+        got = ops.multihash(*args, family=family, mod_m=mod_m, width=W)
+        torch.cuda.synchronize()
+        assert mhk.launch_count() + gfmh.launch_count() == before + 1
+        assert torch.equal(got, plain(*args, family=family, mod_m=mod_m,
+                                      width=W)), mod_m
+
+
+@pytest.mark.parametrize("family", ENGINE_FAMILIES)
+@pytest.mark.parametrize("B", [300, 8192])
+def test_engine_many_functions_match_plain(cuda, family, B):
+    """K = 50 (a Bloom filter at a 1e-15 false-positive rate): the engine
+    hashes 9 functions a pass, 6 passes, into one (B, K, 2) result."""
+    g = rng(0x50 + B)
+    N, K = 301, 50
+    W = N + 1
+    toks = t32(g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32))
+    keys = torch.from_numpy(g.integers(0, 2**64, (K, W + 1),
+                                       dtype=np.uint64).view(np.int64))
+    lens = torch.from_numpy(g.integers(-(N + 1), N + 1, B).astype(np.int32))
+    args = [a.to(cuda) for a in (toks, keys, lens)]
+    plain = ref.gf_multihash_ref if family.startswith("gf_") else ref.multihash_ref
+    for mod_m in (None, 4097):
+        got = ops.multihash(*args, family=family, mod_m=mod_m, width=W)
+        assert torch.equal(got, plain(*args, family=family, mod_m=mod_m,
+                                      width=W)), mod_m
+
+
+@pytest.mark.parametrize("all_ones", [False, True])
+@pytest.mark.parametrize("split", [autotune.ENGINE_MAX_SPLIT, 4096])
+def test_tensor_core_sums_exact_at_the_widest_split(cuda, split, all_ones):
+    """The integer kernel's tensor-core path keeps s32 byte-product sums over
+    a split: at the widest split (8,192 columns) of all-ones tokens and keys
+    they reach 4 x 255^2 x 8,192, just below 2^31, and must stay exact; a
+    wider split is refused by the launcher."""
+    B, N, K = 64, 2 * autotune.ENGINE_MAX_SPLIT, 9
+    W = N + 2
+    g = rng(0x0F1)
+    if all_ones:
+        toks = torch.full((B, N), -1, dtype=torch.int32)
+        keys = torch.full((K, W + 1), -1, dtype=torch.int64)
+    else:
+        toks = t32(g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32))
+        keys = torch.from_numpy(g.integers(0, 2**64, (K, W + 1),
+                                           dtype=np.uint64).view(np.int64))
+    lens = torch.full((B,), N, dtype=torch.int32)
+    toks, keys, lens = toks.to(cuda), keys.to(cuda), lens.to(cuda)
+    splits = autotune.engine_splits(W, split)
+    out = torch.empty((B, K, 2), dtype=torch.int64, device=cuda)
+    part = torch.empty((splits, K, B), dtype=torch.int64, device=cuda)
+    _build.launch("multihash", cuda, toks, keys, lens, out, part, B, N, W, K,
+                  keys.stride(0), 0, split, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.multihash_ref(toks, keys, lens, width=W))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("multihash", cuda, toks, keys, lens, out, part, B, N, W,
+                      K, keys.stride(0), 0, autotune.ENGINE_MAX_SPLIT + 32, 0)
 
 
 @pytest.mark.parametrize("family", ENGINE_FAMILIES)
