@@ -10,8 +10,10 @@ top of them -- at a deployment's scale and checks every result:
 
 1. device: the card's name and power limit; nvcc builds the four kernels
    from the sources in this checkout (timed, with ptxas' registers and
-   spills -- a spill in an engine kernel fails the run -- and each engine
-   launch's dynamic shared memory);
+   spills -- a spill in an engine kernel or the carry-less single-hash
+   kernel fails the run -- and each engine launch's dynamic shared
+   memory); the b1 mma rate that the carry-less single-hash design floor
+   uses, measured by a loop of the instruction alone;
 2. kernels vs plain versions: every engine family, fixed and ragged rows
    (L = 0, odd L, L just before, at and after the 32-column tile and the
    column-split edges), N in {300, 1,100} (one column split; four, with the
@@ -50,10 +52,14 @@ top of them -- at a deployment's scale and checks every result:
    in a CUDA graph and replayed, device time without that gap) beside its
    bound and its plain version's time, at the shapes of phases 3, 4 (the
    integer engine at K 9, and at K 1 and 3 as ExactDedup and HashPipeline
-   launch it), 6a and 6b, and the single-hash entry points' times at 6a.
-   The carry-less engine's rows also give its design's own floor. An
-   admission-batch row also gives the engine's lane-per-row work over the
-   live work (each warp hashes to its longest row).
+   launch it), 6a and 6b (the carry-less single-hash kernel in both its
+   modes: the raw accumulator, and the finished hash with m1 and Barrett
+   that `gf_hash` launches), and the single-hash entry points' times at
+   6a, with the device operations of one `gf_hash` call (torch.profiler;
+   more than 8 fails the run). The carry-less rows also give their
+   design's own floor. An admission-batch row also gives the engine's
+   lane-per-row work over the live work (each warp hashes to its longest
+   row).
 
 The launch counts are set to 0 before phase 3 and read after phase 6: that
 run is the main path (99 engine launches of multihash, 35 of gf_multihash;
@@ -85,6 +91,15 @@ SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 # table reads of 8 bytes a product; a token's 8 nibble offsets (2 operations
 # each) serve its K products.
 GF_TABLE_OPS, GF_NIBBLE_OPS, GF_TABLE_BYTES = 30, 16, 64
+# The carry-less single-hash kernel's HM pair product (csrc/gf_single.cuh::
+# bmul_acc), for its design floor: 2 xors of key and token, 8 ands that
+# split the factors into bit classes, 16 32x32 -> 64-bit multiplies and 16
+# three-input xors of the 64-bit products into the 4 class sums.
+BMUL_PAIR_OPS = 42
+# The b1 mma rate of an A100 (4,992 dense INT1 TOPS: one m16n8k256 product,
+# 65,536 operations, every 2 clocks an SM) carried to 132 SMs at 1.98 GHz:
+# printed beside the rate that phase 1 measures, which the floor uses.
+B1_MMA_PER_S_A100_LIKE = 132 * 1.98e9 / 2
 FAMILIES = ("multilinear", "multilinear_2x2", "multilinear_hm",
             "gf_multilinear", "gf_multilinear_hm")
 KERNELS = {
@@ -177,13 +192,14 @@ class Port:
         return self.ref.multilinear_accumulate_ref(toks, keys, family=family)
 
     def plain_hash(self, family, toks, keys):
-        """Plain version of multilinear_hash / gf_hash: keys (N+1,) int64
-        u64 bits, key 0 is m1."""
-        acc = self.plain_single(family, toks, keys[1:])
-        acc = (acc[:, 0] << 32) | acc[:, 1]
+        """Plain version of multilinear_hash / gf_hash (and of the
+        carry-less kernel's finish mode): keys (N+1,) int64 u64 bits, key 0
+        is m1."""
         if family.startswith("gf_"):
-            return self.gf.barrett_reduce(acc ^ (keys[0] & 0xFFFFFFFF))
-        return self.limbs.hi32(acc + keys[0])
+            k32 = keys.to(self.torch.int32)
+            return self.ref.gf_hash_ref(toks, k32[1:], k32[0], family=family)
+        acc = self.plain_single(family, toks, keys[1:])
+        return self.limbs.hi32(((acc[:, 0] << 32) | acc[:, 1]) + keys[0])
 
 
 def one_launch(port: Port, family: str, fn, kernel: str | None = None):
@@ -300,23 +316,49 @@ def design_floor(B: int, N: int, W: int, K: int, lens) -> tuple[float, str]:
     return t[by] * 1e3, by
 
 
-def single_bound(family: str, B: int, N: int, port: Port) -> tuple[float, str]:
-    """Least time (ms) of a single-hash kernel call: the tokens it hashes
-    (B x cols, cols = N, or 2 floor(N / 2) for HM) and as many keys (8 bytes,
-    4 for the carry-less families) read once, (B, 2) int64 written once,
-    over the memory rate; 2 operations per token for the integer kernel, 64
-    for carry-less plain and 32 for carry-less HM (one 32-step clmul per
-    pair), over the instruction rate."""
+def single_bound(family: str, B: int, N: int, port: Port,
+                 finish: bool = False) -> tuple[float, str]:
+    """Least time (ms) of a single-hash kernel call, whatever its design:
+    the tokens it hashes (B x cols, cols = N, or 2 floor(N / 2) for HM) and
+    as many keys (8 bytes, 4 for the carry-less families; one more, m1, in
+    the finish mode) read once, the output ((B, 2) int64, or (B,) in the
+    finish mode) written once, over the memory rate; for the integer
+    kernel also 2 operations a token (one 64x32-bit multiply-add) over the
+    instruction rate. A carry-less product has no instruction on the card
+    and no operation count that holds for every way to compute it, so the
+    carry-less bound is its bytes; `single_design_floor` gives the floor of
+    the design that ships."""
     cols = port.ref.hashed_cols(N, family)
     gf = family.startswith("gf_")
-    nbytes = B * cols * 4 + cols * (4 if gf else 8) + B * 16
-    per = (32 if family in port.ref.PAIRWISE else 64) if gf else 2
-    return _least_ms(nbytes, per * B * cols)
+    nbytes = (B * cols * 4 + (cols + finish) * (4 if gf else 8)
+              + B * (8 if finish else 16))
+    return _least_ms(nbytes, 0 if gf else 2 * B * cols)
 
 
 def _least_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def single_design_floor(family: str, B: int, N: int, port: Port, device,
+                        b1_rate: float, finish: bool = False) -> tuple[float, str]:
+    """Least time (ms) of the carry-less single-hash kernel in its own
+    design (csrc/gf_single.cuh), never below the bytes bound: the plain
+    family's m16n8k256 b1 mma products -- 8 for every 8 columns of every
+    16-row tile, counted over this launch's column splits -- at `b1_rate`
+    (measured in phase 1); the HM family's BMUL_PAIR_OPS integer operations a
+    pair over the instruction rate. Not a bound on the function: another
+    design could go below it."""
+    b_ms = single_bound(family, B, N, port, finish)[0]
+    cols = port.ref.hashed_cols(N, family)
+    if family in port.ref.PAIRWISE:
+        t_ms, by = BMUL_PAIR_OPS * B * (cols // 2) / INT32_OPS_PER_S * 1e3, "operations"
+    else:
+        split = port.wrappers["gf_multilinear"].split_of(B, N, family, device)
+        steps = sum(-(-min(split, cols - c) // 32) for c in range(0, max(cols, 1), split))
+        mmas = -(-B // 16) * steps * 32  # 4 k-steps x 8 n-tiles a step
+        t_ms, by = mmas / b1_rate * 1e3, "b1 mma"
+    return (t_ms, by) if t_ms > b_ms else (b_ms, "bytes")
 
 
 # --------------------------------------------------------------------------
@@ -341,7 +383,7 @@ def build_kernels(port: Port) -> dict:
         for line in entry["ptxas"].splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
-        if name in ("multihash", "gf_multihash"):
+        if name in ("multihash", "gf_multihash", "gf_multilinear"):
             spills = [ln for ln in entry["ptxas"].splitlines() if "spill" in ln]
             check(all("0 bytes spill stores, 0 bytes spill loads" in ln
                       for ln in spills), f"{name}: ptxas reports spills")
@@ -352,6 +394,18 @@ def build_kernels(port: Port) -> dict:
             f"K={k}{' HM' if hm else ''} {port.build.engine_smem(name, k, hm)}"
             for k in (1, 3, 9, 20) for hm in (False, True)))
     return log
+
+
+def b1_rate(port: Port, device) -> float:
+    """The b1 mma rate the carry-less single-hash design floor uses:
+    measured on this card by a loop of the instruction alone."""
+    rate = port.wrappers["gf_multilinear"].b1_mma_rate(device)
+    print(f"b1 mma rate (m16n8k256 and/popc products a second): {rate} "
+          f"measured on this card by gf_multilinear.b1_mma_rate "
+          f"(csrc/gf_single.cuh::gf_b1_rate); an A100's per-SM rate at 132 "
+          f"SMs x 1.98 GHz would give {B1_MMA_PER_S_A100_LIKE}")
+    check(rate > 0, "b1 mma rate probe")
+    return rate
 
 
 # --------------------------------------------------------------------------
@@ -734,50 +788,103 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
     return records, rows
 
 
-def measure_single(port: Port, device, shapes: dict, launches: dict,
-                   card: str):
-    """Single-hash kernels vs their plain versions at phase 6's shapes:
-    equality, times and bounds; then the entry points' times at 6a (the
-    kernel plus m1 and the finish in PyTorch: >> 32, or Barrett)."""
+def device_ops_per_call(port: Port, fn):
+    """Operations (kernels, copies) one call of fn() puts on the card,
+    counted by torch.profiler; None when the profiler sees none here."""
     torch = port.torch
-    rows, records = [], {}
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # the profiler itself, not the code under test
+        print(f"torch.profiler failed on the card: {exc!r}")
+        return None, []
+    return (len(names) or None), names
+
+
+def measure_single(port: Port, device, shapes: dict, launches: dict,
+                   card: str, rate: float):
+    """Single-hash kernels vs their plain versions at phase 6's shapes:
+    equality, times, bounds (and the carry-less kernel's design floor), the
+    carry-less kernel in both modes (raw accumulator; finished hashes with
+    m1 and Barrett); then the entry points' times at 6a, and the device
+    operations of one `gf_hash` call (at most 8)."""
+    torch = port.torch
+    gfk = port.wrappers["gf_multilinear"]
+    rows, records, finish_ms = [], {}, {}
     for label, res in shapes.items():
         toks, keys = res["tokens"], res["keys"]
+        k32 = keys.to(torch.int32)
         B, N = toks.shape
         for family in res["families"]:
             name = port.single_of(family)
-            k = keys[1:] if name == "multilinear" else keys[1:].to(torch.int32)
-            run = lambda: port.single[name](toks, k, family=family)  # noqa: E731
-            got, want = run(), port.plain_single(family, toks, keys[1:])
-            check(torch.equal(got, want), f"{family} {label}: kernel != plain")
-            err = int((got - want).abs().max().item())
-            del got, want
-            ms, graph_ms = timed(port, run, 20), timed_graph(port, run, 20)
-            plain_ms = timed(port, lambda: port.plain_single(
-                family, toks, keys[1:]), 2)
-            b_ms, b_by = single_bound(family, B, N, port)
-            row = {"kernel": name, "family": family, "shape": label, "B": B,
-                   "N": N, "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-            rows.append(row)
-            print(json.dumps(row))
-            if label == "6a" and family == name:
-                records[name] = {
-                    "name": name, "route": "cuda", "source": KERNELS[name][0],
-                    "replaces": KERNELS[name][1], "launches": launches[name],
-                    "matches_plain": err == 0, "max_abs_err": err, "ms": ms,
-                    "graph_ms": graph_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None}
+            modes = ("raw", "finish") if name == "gf_multilinear" else ("raw",)
+            for mode in modes:
+                if mode == "finish":
+                    run = lambda: gfk.gf_hash_rows(toks, k32, family=family)  # noqa: E731
+                    plain = lambda: port.plain_hash(family, toks, keys)  # noqa: E731
+                else:
+                    k = keys[1:] if name == "multilinear" else k32[1:]
+                    run = lambda: port.single[name](toks, k, family=family)  # noqa: E731
+                    plain = lambda: port.plain_single(family, toks, keys[1:])  # noqa: E731
+                got, want = run(), plain()
+                check(torch.equal(got, want),
+                      f"{family} {label} {mode}: kernel != plain")
+                err = int((got - want).abs().max().item())
+                del got, want
+                ms, graph_ms = timed(port, run, 20), timed_graph(port, run, 20)
+                plain_ms = timed(port, plain, 2)
+                b_ms, b_by = single_bound(family, B, N, port, mode == "finish")
+                extra = {}
+                if name == "gf_multilinear":
+                    extra["design_floor_ms"], extra["design_floor_by"] = \
+                        single_design_floor(family, B, N, port, device, rate,
+                                            mode == "finish")
+                    extra["splits"] = max(1, -(-port.ref.hashed_cols(N, family)
+                                               // gfk.split_of(B, N, family, device)))
+                row = {"kernel": name, "family": family, "shape": label,
+                       "mode": mode, "B": B, "N": N, "ms": ms,
+                       "graph_ms": graph_ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, **extra,
+                       "max_abs_err": err, "card": card}
+                rows.append(row)
+                print(json.dumps(row))
+                if mode == "finish" and label == "6a":
+                    finish_ms[family] = ms
+                # the main path launches the carry-less kernel in its finish mode
+                if (label == "6a" and family == name
+                        and mode == ("finish" if name == "gf_multilinear" else "raw")):
+                    records[name] = {
+                        "name": name, "route": "cuda", "source": KERNELS[name][0],
+                        "replaces": KERNELS[name][1], "launches": launches[name],
+                        "matches_plain": err == 0, "max_abs_err": err, "ms": ms,
+                        "graph_ms": graph_ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        **{key: v for key, v in extra.items()
+                           if key.startswith("design_floor")},
+                        "library_ms": None}
     res = shapes["6a"]
     toks, hi, lo = res["tokens"], res["hi"], res["lo"]
     for family in FAMILIES:
-        if family.startswith("gf_"):
-            fn = lambda: port.ops.gf_hash(toks, lo, family=family)  # noqa: E731
-        else:
-            fn = lambda: port.ops.multilinear_hash(toks, hi, lo, family=family)  # noqa: E731
         row = {"surface": "gf_hash" if family.startswith("gf_") else
                "multilinear_hash", "family": family, "B": toks.shape[0],
-               "N": toks.shape[1], "ms": timed(port, fn, 10), "card": card}
+               "N": toks.shape[1]}
+        if family.startswith("gf_"):
+            fn = lambda: port.ops.gf_hash(toks, lo, family=family)  # noqa: E731
+            n_ops, names = device_ops_per_call(port, fn)
+            check(n_ops is None or n_ops <= 8,
+                  f"gf_hash {family}: {n_ops} device operations a call > 8: {names}")
+            row.update(kernel_finish_ms=finish_ms[family],
+                       device_ops_per_call=n_ops, device_ops=sorted(set(names)))
+        else:
+            fn = lambda: port.ops.multilinear_hash(toks, hi, lo, family=family)  # noqa: E731
+        row.update(ms=timed(port, fn, 10), card=card)
         rows.append(row)
         print(json.dumps(row))
     return records, rows
@@ -805,6 +912,7 @@ def main() -> int:
             card = device_line()
             print(f"card: {card}")
             build_kernels(port)
+            rate = b1_rate(port, device)
         with phase("phase 2: kernels vs plain versions"):
             kernel_vs_plain(port, device)
         B, N, K = 65536, 1024, 9
@@ -844,7 +952,7 @@ def main() -> int:
             kernels, rows = measure(port, device, pure, batches[0], K, launches,
                                     card)
             more, single_rows = measure_single(port, device, single, launches,
-                                               card)
+                                               card, rate)
             kernels = [{**kernels, **more}[k] for k in KERNELS]
             rows += single_rows
         out_dir = ROOT / "chiprun_out"

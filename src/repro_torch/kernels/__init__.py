@@ -3,7 +3,8 @@
 multihash.py      -- fused K-hash kernel, integer families (csrc/multihash.cu)
 gf_multihash.py   -- fused K-hash kernel, GF(2^32) families (csrc/gf_multihash.cu)
 multilinear.py    -- single-hash kernel, integer families (csrc/multilinear.cu)
-gf_multilinear.py -- single-hash kernel, GF(2^32) families (csrc/gf_multilinear.cu)
+gf_multilinear.py -- single-hash kernel, GF(2^32) families, raw or finished
+                     (csrc/gf_multilinear.cu on csrc/gf_single.cuh)
 ref.py            -- plain PyTorch versions (the CPU path and the card's oracle)
 ops.py            -- engine dispatch + launch count; multilinear_hash, gf_hash,
                      hash_tokens_batched

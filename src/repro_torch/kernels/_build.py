@@ -30,13 +30,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #                  split, mod_m, stream)
 _ENGINE = ([_P] * 5 + [_I] * 4
            + [ctypes.c_longlong, _I, _I, ctypes.c_ulonglong, _P])
-# The single-hash kernels' C signature:
-# int repro_<name>(tokens, keys, part, out, B, N, pairwise, stream)
+# The integer single-hash kernel's C signature:
+# int repro_multilinear(tokens, keys, part, out, B, N, pairwise, stream)
 _SINGLE = [_P] * 4 + [_I] * 3 + [_P]
+# The carry-less one's: with `finish`, keys hold m1 first and out gets the
+# finished (B,) hashes (csrc/gf_single.cuh)
+# int repro_gf_multilinear(tokens, keys, part, out, B, N, pairwise, finish,
+#                          split, stream)
+_GF_SINGLE = [_P] * 4 + [_I] * 5 + [_P]
 #: kernel name -> argument types of its C function `repro_<name>`, which
 #: returns cudaGetLastError() after its launches. The stream comes last.
 SIGNATURES = {"multihash": _ENGINE, "gf_multihash": _ENGINE,
-              "multilinear": _SINGLE, "gf_multilinear": _SINGLE}
+              "multilinear": _SINGLE, "gf_multilinear": _GF_SINGLE}
 KERNELS = tuple(SIGNATURES)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -112,9 +117,16 @@ def load(name: str) -> ctypes.CDLL:
 def engine_smem(name: str, K: int, pairwise: bool) -> int:
     """Dynamic shared memory (bytes) of one block of engine kernel `name`
     for K functions, as its C side `repro_<name>_smem` computes it."""
-    fn = getattr(load(name), f"repro_{name}_smem")
-    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
+    fn = c_function(name, f"repro_{name}_smem", [_I, _I], ctypes.c_longlong)
     return int(fn(K, int(pairwise)))
+
+
+def c_function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """Another C function `symbol` of kernel `name`'s library (a probe or a
+    size query beside the launcher)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
 
 
 def launch(name: str, device, *args) -> None:

@@ -5,9 +5,10 @@ problem bucket (`repro.kernels.autotune`). On the card the port compiles
 one fixed configuration into the kernels (as `-D` defines, see
 `_build.py`): in the fused multi-hash engine a block owns one token row
 per thread and a split of the columns that `engine_split` picks from the
-shape; in the single-hash kernels a block owns a `tile` of columns for
-`rows` rows. A measured sweep with its cache is still to be ported
-(ROADMAP Queue 1).
+shape; in the integer single-hash kernel a block owns a `tile` of columns
+for `rows` rows; in the carry-less one a warp owns 16 rows and a split of
+the columns that `gf_single_split` picks. A measured sweep with its cache
+is still to be ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -25,9 +26,16 @@ ENGINE_TILE = 32
 #: ET_MAX_SPLIT: the integer tensor-core path's s32 sums stay exact).
 ENGINE_MIN_SPLIT = 256
 ENGINE_MAX_SPLIT = 8192
-#: single-hash kernels (csrc/single_hash.cuh): threads per block, rows per
-#: block and columns per tile (the tile's keys sit in shared memory).
+#: integer single-hash kernel (csrc/single_hash.cuh): threads per block,
+#: rows per block and columns per tile (the tile's keys sit in shared memory).
 SINGLE = {"threads": 256, "rows": 32, "tile": 2048}
+#: carry-less single-hash kernel (csrc/gf_single.cuh): threads per block, 16
+#: rows a warp, and the blocks an SM must hold (the launch bounds of its
+#: plain and its HM kernel); a split is a multiple of its 32-column step and
+#: at most 2^26 columns (the b1 tensor cores' s32 counts stay exact).
+GF_SINGLE = {"threads": 128, "min_blocks": 4, "hm_min_blocks": 8}
+GF_SINGLE_STEP = 32
+GF_SINGLE_MAX_SPLIT = 1 << 26
 
 
 def pow2_at_least(x: int) -> int:
@@ -58,7 +66,8 @@ def engine_fill(kernel: str, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def engine_split(B: int, W: int, rows: int, fill: int) -> int:
+def engine_split(B: int, W: int, rows: int, fill: int, tile: int = ENGINE_TILE,
+                 max_split: int = ENGINE_MAX_SPLIT) -> int:
     """Columns per split of a fused multi-hash launch over B rows of width
     W, `rows` rows per block, on a card that `fill` blocks fill
     (`engine_fill`): all W (one split, the kernel runs the epilogue itself)
@@ -66,8 +75,10 @@ def engine_split(B: int, W: int, rows: int, fill: int) -> int:
     the one that reaches `fill` blocks and with splits of at least
     `ENGINE_MIN_SPLIT` columns, whose waves of blocks take the least time
     (waves / splits; the fewest splits on a tie). A split is a multiple of
-    the 32-column tile and never more than `ENGINE_MAX_SPLIT` columns. A
-    second pass then combines the splits exactly (`csrc/engine_tile.cuh`)."""
+    the `tile` (the engine's 32 columns) and never more than `max_split`
+    columns. A second pass then combines the splits exactly
+    (`csrc/engine_tile.cuh`; `gf_single_split` for the carry-less
+    single-hash kernel)."""
     row_blocks = max(1, -(-B // rows))
     most = max(1, min(-(-fill // row_blocks), W // ENGINE_MIN_SPLIT))
     best = 1
@@ -75,9 +86,9 @@ def engine_split(B: int, W: int, rows: int, fill: int) -> int:
         # waves(s) / s < waves(best) / best
         if -(-s * row_blocks // fill) * best < -(-best * row_blocks // fill) * s:
             best = s
-    splits = max(best, -(-W // ENGINE_MAX_SPLIT))
+    splits = max(best, -(-W // max_split))
     cols = -(-W // splits)
-    return max(ENGINE_TILE, -(-cols // ENGINE_TILE) * ENGINE_TILE)
+    return max(tile, -(-cols // tile) * tile)
 
 
 def engine_splits(W: int, split: int) -> int:
@@ -86,7 +97,22 @@ def engine_splits(W: int, split: int) -> int:
     return -(-W // split) if W > split else 1
 
 
+def gf_single_rows() -> int:
+    """Rows per block of the carry-less single-hash kernel."""
+    return GF_SINGLE["threads"] // 32 * 16
+
+
+def gf_single_split(B: int, cols: int, sms: int, pairwise: bool = False) -> int:
+    """Columns per split of a carry-less single-hash launch over B rows of
+    `cols` hashed columns on a card of `sms` SMs: `engine_split`'s rule,
+    filled to the resident blocks of the plain or (`pairwise`) HM kernel."""
+    fill = sms * GF_SINGLE["hm_min_blocks" if pairwise else "min_blocks"]
+    return engine_split(B, cols, gf_single_rows(), fill, tile=GF_SINGLE_STEP,
+                        max_split=GF_SINGLE_MAX_SPLIT)
+
+
 def nvcc_defines() -> list[str]:
     """The launch configurations as nvcc `-D` flags."""
     return ([f"-DET_{k.upper()}={v}" for k, v in ENGINE.items()]
-            + [f"-DSH_{k.upper()}={v}" for k, v in SINGLE.items()])
+            + [f"-DSH_{k.upper()}={v}" for k, v in SINGLE.items()]
+            + [f"-DGS_{k.upper()}={v}" for k, v in GF_SINGLE.items()])

@@ -10,10 +10,11 @@ The port's counterpart of `repro.kernels.ops`:
   CUDA launches);
 - `multilinear_hash`, `gf_hash` and `hash_tokens_batched` compute one keyed
   hash of each fixed-length row, drawing from one key string with key 0 as
-  m1. The raw accumulator comes from the single-hash kernel wrappers
-  (`kernels.multilinear`, `kernels.gf_multilinear`); m1 and the finish
-  (>> 32, or Barrett for the carry-less families) are added here, as in the
-  reference. The reference's `backend`/`block_b`/`block_n` arguments are
+  m1. `multilinear_hash` takes the raw accumulator from its kernel
+  wrapper (`kernels.multilinear`) and adds m1 and the >> 32 here, as the
+  reference does; `gf_hash` is one launch of the carry-less kernel
+  (`kernels.gf_multilinear.gf_hash_rows`), which xors m1 in and runs the
+  Barrett reduction in the pass that writes each row. The reference's `backend`/`block_b`/`block_n` arguments are
   gone: the tensors' device decides, and the tiling belongs to the kernel.
 
 Tensor inputs run on their own device; numpy inputs on
@@ -25,7 +26,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import gf as gf_core
 from ..core.device import as_tokens, as_u32_values, resolve_device
 from ..core.keys import KeyBuffer
 from ..core.limbs import hi32
@@ -74,6 +74,16 @@ def _plane(x, n: int, device) -> torch.Tensor:
     return as_u32_values(x[:n], device)
 
 
+def _plane32(x, n: int, device) -> torch.Tensor:
+    """The first n entries of a u32 key plane as an int32 tensor of the same
+    bits on `device`: a view when x already is one there (so `gf_hash`
+    launches nothing but its kernel), else a converted copy."""
+    if (isinstance(x, torch.Tensor) and x.device == device and x.dim() == 1
+            and x.dtype in (torch.int32, torch.uint32) and len(x) >= n):
+        return x[:n].view(torch.int32).contiguous()
+    return _plane(x, n, device).to(torch.int32)
+
+
 def multilinear_hash(tokens, key_hi, key_lo, *, family="multilinear",
                      device=None):
     """Batched (B, N) -> (B,) 32-bit Multilinear(-2x2, -HM) hashes.
@@ -93,9 +103,8 @@ def gf_hash(tokens, keys32, *, family="gf_multilinear", device=None):
     """Batched (B, N) -> (B,) 32-bit GF(2^32) Multilinear(-HM) hashes:
     Barrett(acc ^ m1) mod p(x). keys32: (>= N+1,) u32 keys; key 0 is m1."""
     toks, one = _rows(tokens, device)
-    keys = _plane(keys32, toks.shape[1] + 1, toks.device)
-    acc = gfk.gf_hash_blocks(toks, keys[1:].to(torch.int32), family=family)
-    out = gf_core.barrett_reduce(((acc[:, 0] << 32) | acc[:, 1]) ^ keys[0])
+    keys = _plane32(keys32, toks.shape[1] + 1, toks.device)
+    out = gfk.gf_hash_rows(toks, keys, family=family)
     return out[0] if one else out
 
 

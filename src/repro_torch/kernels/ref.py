@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the CUDA kernels.
 
-`multihash_ref` and `gf_multihash_ref` (the fused K-hash engine) and
+`multihash_ref` and `gf_multihash_ref` (the fused K-hash engine),
 `multilinear_accumulate_ref` and `gf_accumulate_ref` (the single-hash raw
-accumulators) compute exactly what the CUDA kernels in `csrc/` compute,
+accumulators) and `gf_hash_ref` (the carry-less single hash with its m1 and
+Barrett finish) compute exactly what the CUDA kernels in `csrc/` compute,
 with ordinary tensor operations. They run the CPU path of the kernel
 wrappers (`kernels.multihash`, `gf_multihash`, `multilinear`,
 `gf_multilinear`) and are what `chip_smoke.py` holds each kernel against
@@ -32,6 +33,12 @@ Single-hash layout (`single_shapes`): tokens (B, N) int32 as above; keys
 accumulator. The HM families hash floor(N / 2) pairs: the reference pads
 an odd row with a zero token and a zero key, so its last token adds
 (k + s) * 0 = 0.
+
+`gf_matrix_accumulate_ref` and `bmul32` are CPU twins of the two product
+forms of the carry-less single-hash kernel (`csrc/gf_single.cuh`): the
+GF(2) matrix product that its plain family runs on the b1 tensor cores,
+and the integer-multiply carry-less product of its HM family. The tests
+hold them against the bit-serial form; nothing on the card calls them.
 """
 from __future__ import annotations
 
@@ -226,3 +233,82 @@ def gf_accumulate_ref(tokens, keys32, family="gf_multilinear"):
     else:
         prod = gf_core.clmul32(k, s)
     return _split(xor_reduce(prod))
+
+
+def gf_hash_ref(tokens, keys32, m1, family="gf_multilinear"):
+    """(B, N) tokens x (N,) u32 keys (no m1) and the u32 m1 (an int or a
+    0-d tensor) -> (B,) int64 hashes Barrett(acc ^ m1) mod p(x): the plain
+    version of the kernel's finish mode."""
+    acc = gf_accumulate_ref(tokens, keys32, family=family)
+    m1 = torch.as_tensor(m1, dtype=torch.int64, device=tokens.device) & MASK32
+    return gf_core.barrett_reduce(((acc[:, 0] << 32) | acc[:, 1]) ^ m1)
+
+
+def _s64(x: int) -> int:
+    """A u64 bit pattern as the int64 value of the same bits."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def brev32(x: torch.Tensor) -> torch.Tensor:
+    """Bit reversal of u32 values held in int64 (CUDA's __brev)."""
+    for shift, mask in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F),
+                        (8, 0x00FF00FF), (16, 0x0000FFFF)):
+        x = ((x >> shift) & mask) | ((x & mask) << shift)
+    return x
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of u32 values held in int64."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x * 0x01010101 >> 24) & 0xFF
+
+
+def toeplitz_word(k: torch.Tensor, j: int) -> torch.Tensor:
+    """The b1 B operand's word of key k (u32 in int64) for output bit j of
+    the product: bit v is k[j - v] (0 outside 0..31). From r = brev(k),
+    whose bit 31 - u is k[u]: r >> (31 - j) for j < 32, else
+    (r << (j - 31)) mod 2^32 -- the kernel's funnel shifts."""
+    r = brev32(k)
+    return r >> (31 - j) if j < 32 else (r << (j - 31)) & MASK32
+
+
+def gf_matrix_accumulate_ref(tokens, keys32, family="gf_multilinear"):
+    """The plain family's raw accumulator as the kernel's GF(2) matrix
+    product: bit j of acc[b] is the parity of sum_i popc(s[b, i] &
+    toeplitz_word(k[i], j)), the AND-popcount count that one b1 mma column
+    accumulates (A word: a token as it is; B word: `toeplitz_word`).
+    -> (B, 2) int64 (hi, lo), equal to `gf_accumulate_ref`."""
+    single_shapes(tokens, keys32, family, ("gf_multilinear",))
+    s = tokens.to(torch.int64) & MASK32
+    k = (keys32.to(torch.int64) & MASK32)[None, :]
+    acc = torch.zeros(s.shape[0], dtype=torch.int64, device=s.device)
+    for j in range(63):  # bit 63 of a 63-bit product is never set
+        count = popcount32(s & toeplitz_word(k, j)).sum(dim=1)
+        acc |= (count & 1) << j
+    return _split(acc)
+
+
+_CLASS = [_s64(0x1111111111111111 << c) for c in range(4)]
+
+
+def bmul32(a, b) -> torch.Tensor:
+    """Carry-less 32x32 -> 63-bit product of u32 values (int64 tensors) by
+    integer multiplies with holes (Pornin's bmul, BearSSL ghash_ctmul):
+    a_c = a & (0x11111111 << c), likewise b; the integer product of a
+    class pair has at most 8 terms at any bit, fewer than the 16 that
+    would carry into the next bit of the same class, so the bits of output
+    class r in xor_(c + d = r mod 4) a_c * b_d are the carry-less product's.
+    int64 multiplies wrap mod 2^64, which keeps every bit."""
+    a = torch.as_tensor(a, dtype=torch.int64)
+    b = torch.as_tensor(b, dtype=torch.int64, device=a.device)
+    ac = [a & (0x11111111 << c) for c in range(4)]
+    bc = [b & (0x11111111 << c) for c in range(4)]
+    out = 0
+    for r in range(4):
+        z = ac[0] * bc[r]
+        for c in range(1, 4):
+            z = z ^ (ac[c] * bc[(r - c) % 4])
+        out = out | (z & _CLASS[r])
+    return out

@@ -171,8 +171,8 @@ def test_hasher_on_card_matches_host_twin(cuda, family):
 @pytest.mark.parametrize("B", [1, 8, 300])
 def test_single_hash_kernel_matches_plain(cuda, family, N, B):
     """Kernels 3-4 == their plain versions: one and several column tiles
-    (2,048 columns each), odd N (HM hashes floor(N / 2) pairs), row groups
-    cut short, int32 tokens with the sign bit set."""
+    or splits, odd N (HM hashes floor(N / 2) pairs), row groups cut short,
+    int32 tokens with the sign bit set; kernel 4 also in its finish mode."""
     g = rng(0x5EED + N + B)
     toks = t32(g.integers(0, 2**32, (B, N), dtype=np.uint64).astype(np.uint32))
     keys = torch.from_numpy(g.integers(0, 2**64, N, dtype=np.uint64).view(np.int64))
@@ -187,6 +187,67 @@ def test_single_hash_kernel_matches_plain(cuda, family, N, B):
     assert mlk.launch_count() + gfk.launch_count() == before + 1
     assert torch.equal(got.cpu(), plain(toks, keys, family=family))
     assert torch.equal(got, plain(toks.to(cuda), keys.to(cuda), family=family))
+    if gf:  # the finish mode: m1 (key 0) and Barrett in the kernel's write
+        k33 = torch.cat([torch.tensor([-0x1234567], dtype=torch.int32), keys])
+        got = gfk.gf_hash_rows(toks.to(cuda), k33.to(cuda), family=family)
+        torch.cuda.synchronize()
+        assert gfk.launch_count() == before - mlk.launch_count() + 2
+        assert torch.equal(got.cpu(), ref.gf_hash_ref(toks, keys, k33[0],
+                                                      family=family))
+
+
+def test_gf_b1_fragments_one_hot(cuda):
+    """Every (token bit u, key bit v) pair at every column of a 32-column
+    step: row 32 i + u holds the token 1 << u at column i, whose key is
+    1 << i, so its hash is 1 << (u + i). Pins the b1 fragments' bit order
+    and which token each 32 bits of A and B are."""
+    N = 32
+    toks = torch.zeros((N * 32, N), dtype=torch.int64)
+    rows = torch.arange(N * 32)
+    toks[rows, rows // 32] = 1 << (rows % 32)
+    keys = (1 << torch.arange(N, dtype=torch.int64))
+    toks, keys = toks.to(torch.int32), keys.to(torch.int32)
+    got = gfk.gf_hash_blocks(toks.to(cuda), keys.to(cuda)).cpu()
+    acc = 1 << (rows % 32 + rows // 32)
+    assert torch.equal(got, torch.stack([acc >> 32, acc & 0xFFFFFFFF], 1))
+    assert torch.equal(got, ref.gf_accumulate_ref(toks, keys))
+
+
+def test_gf_b1_counts_exact_at_the_widest_split(cuda):
+    """All-ones rows of 2^26 - 1 columns in one split: every output bit's
+    s32 count reaches 32 (2^26 - 1), just below 2^31, and must keep its
+    parity; the xor of an odd number of clmul(~0, ~0) is one of them. A
+    split above 2^26 columns is refused."""
+    B, N = 16, autotune.GF_SINGLE_MAX_SPLIT - 1
+    toks = torch.full((B, N), -1, dtype=torch.int32, device=cuda)
+    keys = torch.full((N,), -1, dtype=torch.int32, device=cuda)
+    out = torch.empty((B, 2), dtype=torch.int64, device=cuda)
+    _build.launch("gf_multilinear", cuda, toks, keys, out, out, B, N, 0, 0,
+                  autotune.GF_SINGLE_MAX_SPLIT)
+    torch.cuda.synchronize()
+    p = int(ref.bmul32(torch.tensor(0xFFFFFFFF), torch.tensor(0xFFFFFFFF)))
+    assert torch.equal(out.cpu(), torch.tensor([[p >> 32, p & 0xFFFFFFFF]] * B))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("gf_multilinear", cuda, toks, keys, out, out, B, N, 0, 0,
+                      autotune.GF_SINGLE_MAX_SPLIT + 32)
+
+
+@pytest.mark.parametrize("family", ["gf_multilinear", "gf_multilinear_hm"])
+def test_gf_hash_is_one_launch(cuda, family):
+    """`gf_hash` on the card is one counted kernel launch a call, with m1
+    and Barrett inside it, equal to its plain version."""
+    g = rng(0x0E1)
+    toks = t32(g.integers(0, 2**32, (300, 1031), dtype=np.uint64).astype(np.uint32))
+    keys = g.integers(0, 2**32, 1032, dtype=np.uint64).astype(np.uint32)
+    t = toks.to(cuda)
+    k = torch.from_numpy(keys.view(np.int32)).to(cuda)
+    for _ in range(3):
+        before = (gfk.launch_count(), mlk.launch_count())
+        got = ops.gf_hash(t, k, family=family)
+        assert (gfk.launch_count(), mlk.launch_count()) == (before[0] + 1, before[1])
+    k32 = torch.from_numpy(keys.view(np.int32))
+    assert torch.equal(got.cpu(), ref.gf_hash_ref(toks, k32[1:], k32[0],
+                                                  family=family))
 
 
 def test_stream_digest_on_card_matches_cpu(cuda):
