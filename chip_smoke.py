@@ -61,10 +61,39 @@ top of them -- at a deployment's scale and checks every result:
    lane-per-row work over the live work (each warp hashes to its longest
    row).
 
+7. tree fingerprints and checkpoints (`hash.tree`, `checkpoint`), a path of
+   its own after phase 5, on the engine kernels at the tree-leaf shape (K 1,
+   64-bit surface, fixed length, 256-word leaves):
+   a. a seeded 1 GiB int32 tensor on the card (2^20 leaves), `TreeSpec()`:
+      `fingerprint_array` of the card tensor == `fingerprint_bytes` of the
+      same bytes staged from the host; `fingerprint` == `digest_tokens`
+      (0-d `n_tokens` on the card) == a `TreeStream` fed the host words in
+      97 uneven updates (the token count is their tag, the byte count that
+      of the byte surfaces); the leaf launch == its plain version at full
+      size; a 64 MiB prefix's root == the numpy twin `digest_host`. Again
+      at 256 MiB for `gf_multilinear` (kernel 2; 16 MiB prefix) and
+      `multilinear_hm`. Times: the card-resident and the host-staged
+      fingerprint, the stream, the leaf kernel (`ms`, `graph_ms`, bound,
+      plain) and the fold (`ms`, `graph_ms`, device operations);
+   b. `Checkpointer` (keep=2) over a ~512 MiB state on the card (f32, bf16,
+      int32, an OrderedDict state_dict, an odd-length uint8 leaf): 3 saves,
+      `verify` uncached, `latest_valid` cached, `restore` (== the state);
+      a flipped byte of arrays.npz fails `verify` and `restore` raises
+      `CorruptCheckpointError`; an array rewritten in a clean zip fails its
+      fingerprint. MB/s of each;
+   c. `ExactDedup.add_documents` over 256 documents of 64-2,048 words and
+      8 of 2^20 words (tree route) with repeats at both lengths: the mask
+      equals the same routing on host fingerprints.
+
 The launch counts are set to 0 before phase 3 and read after phase 6: that
 run is the main path (99 engine launches of multihash, 35 of gf_multihash;
-printed per phase). Launches made to compare or to time come after.
-Any failed check exits non-zero. The last line is the JSON device record.
+printed per phase). Launches made to compare or to time come after. They
+are set to 0 again before phase 7, whose every call is checked for its
+exact engine launches: one per `fingerprint*`/`digest_tokens` call and
+per `TreeStream` flush, one per checkpoint leaf array plus one per path
+and one per root, one for the short documents' batch and one per long
+document. Any failed check exits non-zero. The last line is the JSON
+device record.
 """
 from __future__ import annotations
 
@@ -144,9 +173,11 @@ class Port:
         sys.path.insert(0, str(ROOT / "src"))
         import torch
 
+        from repro_torch.checkpoint import Checkpointer, CorruptCheckpointError
         from repro_torch.core import gf, hostref, keys, limbs
+        from repro_torch.core.pytree import flatten_with_paths
         from repro_torch.data import BloomFilter, ExactDedup, HashPipeline, PipelineConfig
-        from repro_torch.hash import Hasher, HashSpec, streaming
+        from repro_torch.hash import Hasher, HashSpec, TreeHasher, TreeSpec, streaming
         from repro_torch.kernels import _build, autotune, ops, ref
         from repro_torch.kernels import gf_multihash as gfmh
         from repro_torch.kernels import gf_multilinear as gfk
@@ -155,9 +186,13 @@ class Port:
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
         self.gf, self.keys, self.streaming = gf, keys, streaming
+        self.flatten = flatten_with_paths
         self.BloomFilter, self.ExactDedup = BloomFilter, ExactDedup
         self.HashPipeline, self.PipelineConfig = HashPipeline, PipelineConfig
         self.Hasher, self.HashSpec = Hasher, HashSpec
+        self.TreeHasher, self.TreeSpec = TreeHasher, TreeSpec
+        self.Checkpointer, self.CorruptCheckpointError = (Checkpointer,
+                                                          CorruptCheckpointError)
         self.build, self.ops, self.ref = _build, ops, ref
         self.autotune = autotune
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
@@ -890,6 +925,322 @@ def measure_single(port: Port, device, shapes: dict, launches: dict,
     return records, rows
 
 
+# --------------------------------------------------------------------------
+# phase 7: tree fingerprints and checkpoints
+# --------------------------------------------------------------------------
+
+def launched(port: Port, n: int, fn, what: str):
+    """Run fn(); require exactly n engine launches on the card (kernels 1-2,
+    counted by their wrappers) and n engine dispatches, and no launch of
+    another kernel. Returns fn()'s result."""
+    c0, d0 = port.counts(), port.ops.launch_count()
+    out = fn()
+    c1 = port.counts()
+    engine = sum(c1[k] - c0[k] for k in ("multihash", "gf_multihash"))
+    other = {k: c1[k] - c0[k] for k in ("multilinear", "gf_multilinear")}
+    on_card = port.torch.cuda.is_available()  # wrappers count CUDA launches
+    check((engine == n or not on_card) and port.ops.launch_count() - d0 == n
+          and not any(other.values()),
+          f"{what}: expected {n} engine launch(es), counts {c0} -> {c1}")
+    return out
+
+
+def stream_flushes(bounds, lw: int, leaf_batch: int) -> int:
+    """Flushes (engine launches) of a TreeStream fed updates at `bounds`,
+    digest included: `TreeStream.update`'s rule, on the block lengths."""
+    nbuf, total, flushes = 0, 0, 0
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        if b == a:
+            continue
+        nbuf, total = nbuf + b - a, total + b - a
+        if nbuf >= leaf_batch * lw:
+            flushes, nbuf = flushes + 1, nbuf % lw
+    return flushes + int(nbuf > 0 or total == 0)
+
+
+def tree_fingerprints(port: Port, device, family: str, n_words: int,
+                      prefix_words: int, card: str) -> dict:
+    """7a: one seeded int32 tensor of n_words on the card under
+    `TreeSpec(family=family)`: device-resident fingerprint_array == the
+    same bytes staged from the host == fingerprint of the tokens == a
+    TreeStream fed the host words in 97 uneven updates; the leaf launch ==
+    its plain version at full size; the root of a prefix == the numpy
+    twin. Times and device operations for the record."""
+    torch = port.torch
+    spec = port.TreeSpec(family=family)
+    th = port.TreeHasher(spec, device=device)
+    lw = spec.leaf_words
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    x = torch.randint(-2**31, 2**31, (n_words,), generator=gen,
+                      dtype=torch.int32, device=device)
+    n_bytes = 4 * n_words
+    fp_dev = launched(port, 1, lambda: th.fingerprint_array(x),
+                      f"{family}: fingerprint_array")
+    host = x.cpu().numpy()
+    t0 = time.perf_counter()
+    fp_host = launched(port, 1, lambda: th.fingerprint_bytes(host.view(np.uint8)),
+                       f"{family}: fingerprint_bytes")
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    check(fp_dev == fp_host, f"{family}: device-resident {fp_dev:#x} != "
+          f"host-staged {fp_host:#x}")
+    fp_tok = launched(port, 1, lambda: th.fingerprint(x), f"{family}: fingerprint")
+    hi, lo = launched(port, 1, lambda: th.digest_tokens(
+        x, n_tokens=torch.tensor(n_words, device=device)), "digest_tokens").tolist()
+    check((hi << 32) | lo == fp_tok, f"{family}: digest_tokens != fingerprint")
+    # 97 uneven updates of the host words (tag: the token count)
+    g = np.random.default_rng(SEED + 97)
+    bounds = [0] + sorted(g.integers(0, n_words, 96).tolist()) + [n_words]
+    leaf_batch = 1024
+    flushes = stream_flushes(bounds, lw, leaf_batch)
+
+    def run_stream():
+        st = th.stream(leaf_batch=leaf_batch)
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            st.update(host[a:b])
+        return st.digest_int()
+
+    t0 = time.perf_counter()
+    fp_stream = launched(port, flushes, run_stream, f"{family}: stream")
+    stream_ms = 1e3 * (time.perf_counter() - t0)
+    check(fp_stream == fp_tok, f"{family}: stream {fp_stream:#x} != "
+          f"fingerprint {fp_tok:#x}")
+    # the leaf launch against its plain version, at full size
+    name = port.kernel_of(family)
+    rows = x.view(-1, lw)
+    B = rows.shape[0]
+    keys = th.hasher.keys
+    lens = torch.full((B,), -(lw + 1), dtype=torch.int32, device=device)
+    run = lambda: port.ops.multihash(rows, keys, lens, family=family, width=lw)  # noqa: E731
+    got = launched(port, 1, run, f"{family}: leaf launch")
+    want = port.plain(family, rows, keys, lens, width=lw)
+    check(torch.equal(got, want), f"{family}: tree leaf launch != plain version")
+    err = int((got - want).abs().max().item())
+    del got, want
+    # the root of a prefix against the numpy twin
+    t0 = time.perf_counter()
+    twin = th.digest_host(host[:prefix_words].view(np.uint32))
+    twin_s = time.perf_counter() - t0
+    fp_prefix = launched(port, 1, lambda: th.fingerprint(x[:prefix_words]),
+                         f"{family}: prefix fingerprint")
+    check(fp_prefix == twin, f"{family}: prefix root {fp_prefix:#x} != "
+          f"digest_host {twin:#x}")
+    print(f"{family}: {n_bytes} bytes, {B} leaves of {lw} words: "
+          f"fingerprint_array (card) == fingerprint_bytes (host-staged) "
+          f"{fp_dev:#018x}; fingerprint == digest_tokens == stream of "
+          f"{len(bounds) - 1} updates ({flushes} flushes) {fp_tok:#018x}; "
+          f"leaf launch == plain version; {4 * prefix_words}-byte prefix "
+          f"== digest_host ({twin_s:.3f} s numpy)")
+    rec = {"family": family, "bytes": n_bytes, "leaves": B, "leaf_words": lw,
+           "root": f"{fp_dev:#018x}", "stream_updates": len(bounds) - 1,
+           "stream_flushes": flushes, "prefix_bytes": 4 * prefix_words,
+           "digest_host_s": twin_s, "launches": 6 + flushes,
+           "fingerprint_bytes_host_ms": host_ms, "stream_ms": stream_ms,
+           "card": card}
+
+    def measure_tree() -> dict:
+        """Times and device operations, once the path's launches are read."""
+        nodes = th._leaf_digests(rows)
+        fold = lambda: th._fold_impl(nodes, B, n_bytes)  # noqa: E731
+        fold_ops, fold_names = device_ops_per_call(port, fold)
+        fp_ops, _ = device_ops_per_call(port, lambda: th.fingerprint_array(x))
+        lens_np = lens.cpu().numpy()
+        b_ms, b_by = bound(name, B, lw, lw, 1, lens_np)
+        floor = (dict(zip(("design_floor_ms", "design_floor_by"),
+                          design_floor(B, lw, lw, 1, lens_np)))
+                 if name == "gf_multihash" else {})
+        rec.update({
+            "fingerprint_array_ms": timed(port, lambda: th.fingerprint_array(x), 10),
+            "device_ops_per_fingerprint": fp_ops,
+            "fold_ms": timed(port, fold, 20),
+            "fold_graph_ms": timed_graph(port, fold, 20),
+            "fold_device_ops": fold_ops, "fold_op_names": sorted(set(fold_names)),
+            "fold_levels": max(0, (B - 1).bit_length()),
+            "leaf": {"kernel": name, "B": B, "N": lw, "K": 1,
+                     "ms": timed(port, run, 20),
+                     "graph_ms": timed_graph(port, run, 20),
+                     "plain_ms": timed(port, lambda: port.plain(
+                         family, rows, keys, lens, width=lw), 2),
+                     "bound_ms": b_ms, "bound_by": b_by, **floor,
+                     "max_abs_err": err}})
+        print(json.dumps(rec))
+        return rec
+
+    return rec, measure_tree
+
+
+def _state(port: Port, device, rows: int) -> dict:
+    """A training-like state on the card, ~512 MiB at rows = 8,192: nested
+    dicts of f32, bf16 and int32 leaves, an OrderedDict state_dict and a
+    uint8 leaf of odd byte length, from a seeded generator."""
+    torch = port.torch
+    from collections import OrderedDict
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    return {"params": {"w": randn(rows, rows),
+                       "b16": randn(rows, rows // 2, dtype=torch.bfloat16)},
+            "opt": OrderedDict([("exp_avg", randn(rows // 2, rows)),
+                                ("step", torch.tensor(1234, dtype=torch.int32,
+                                                      device=device))]),
+            "data": {"ids": torch.randint(0, 50000, (rows * rows // 4,),
+                                          generator=gen, dtype=torch.int32,
+                                          device=device),
+                     "blob": torch.randint(0, 256, (rows * 122 + 3,), generator=gen,
+                                           dtype=torch.uint8, device=device)}}
+
+
+def _flip_in(npz: Path, member: str) -> None:
+    """Flip one byte in the middle of `member`'s stored data in the zip."""
+    import zipfile
+
+    with zipfile.ZipFile(npz) as z:
+        info = z.getinfo(member)
+    off = info.header_offset + 30 + len(info.filename) + info.compress_size // 2
+    with open(npz, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def checkpoints(port: Port, device, card: str, rows: int = 8192) -> dict:
+    """7b: Checkpointer.save x 3 (keep=2), verify (uncached), latest_valid
+    (cached), restore on the card; a flipped byte of arrays.npz fails
+    verify and raises CorruptCheckpointError on restore; an array
+    rewritten in a clean zip fails its fingerprint."""
+    import tempfile
+
+    torch = port.torch
+    state = _state(port, device, rows)
+    flat = [v for _, v in port.flatten(state)]
+    n = len(flat)
+    stored = sum(x.numel() * (4 if x.dtype == torch.bfloat16 else x.element_size())
+                 for x in flat)
+    rec = {"leaves": n, "state_bytes": sum(x.numel() * x.element_size() for x in flat),
+           "stored_bytes": stored, "card": card}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        ck = port.Checkpointer(d, keep=2, device=device)
+        saves = []
+        for step in (1, 2, 3):
+            _, dt = wall(lambda: launched(port, 2 * n + 1,
+                                          lambda: ck.save(step, state), "save"))
+            saves.append(dt)
+        check(ck.steps() == [2, 3], f"keep=2: steps {ck.steps()}")
+        ok, verify_s = wall(lambda: launched(port, 2 * n + 1,
+                                             lambda: ck.verify(3), "verify"))
+        check(ok, "verify of a fresh checkpoint")
+        latest, latest_s = wall(lambda: launched(port, 0, ck.latest_valid,
+                                                 "latest_valid (cached)"))
+        check(latest == 3, f"latest_valid {latest}")
+        out, restore_s = wall(lambda: launched(port, n, lambda: ck.restore(
+            3, state), "restore"))
+        check(all(torch.equal(a, b) and a.dtype == b.dtype and a.device == b.device
+                  for a, b in zip(flat, (v for _, v in port.flatten(out)))),
+              "restore != the saved state")
+        del out
+        # one flipped byte in the last leaf's data: the zip CRC or the
+        # fingerprint must catch it, in verify and in restore
+        npz = Path(d) / "step_3" / "arrays.npz"
+        _flip_in(npz, f"a{n - 1}.npy")
+        ok = launched(port, n - 1, lambda: ck.verify(3), "verify (corrupt)")
+        check(not ok, "verify passed a flipped byte")
+        try:
+            launched(port, n - 1, lambda: ck.restore(3, state), "restore (corrupt)")
+            raise SmokeFailure("restore of a flipped byte did not raise")
+        except port.CorruptCheckpointError as exc:
+            rec["corrupt_restore_error"] = str(exc)[:200]
+        # step 3's verdict is cached; step 2 is verified for the first time
+        check(launched(port, 2 * n + 1, ck.latest_valid, "latest_valid") == 2,
+              "latest_valid did not skip the corrupt step")
+        # a clean zip with one wrong element: only the fingerprint sees it
+        small = port.Checkpointer(str(Path(d) / "small"), device=device)
+        tiny = {"a": state["data"]["blob"][:4096].clone(),
+                "b": state["data"]["ids"][:1000].clone()}
+        launched(port, 5, lambda: small.save(1, tiny), "save (small)")
+        spath = Path(d) / "small" / "step_1" / "arrays.npz"
+        arrays = dict(np.load(spath))
+        arrays["a0"][0] ^= 1
+        np.savez(spath, **arrays)
+        check(not launched(port, 1, lambda: small.verify(1), "verify (rewritten)"),
+              "verify passed a rewritten array")
+        try:
+            launched(port, 1, lambda: small.restore(1, tiny), "restore (rewritten)")
+            raise SmokeFailure("restore of a rewritten array did not raise")
+        except port.CorruptCheckpointError as exc:
+            check("fingerprint mismatch" in str(exc), f"rewritten: {exc}")
+    mb = stored / 1e6
+    rec.update({"launches": 5 * (2 * n + 1) + n + 2 * (n - 1) + 7,
+                "save_s": saves, "verify_uncached_s": verify_s,
+                "latest_valid_cached_s": latest_s, "restore_s": restore_s,
+                "save_MBps": [mb / t for t in saves], "verify_MBps": mb / verify_s,
+                "restore_MBps": mb / restore_s})
+    print(f"checkpoints: {n} leaves, {stored} stored bytes; save "
+          f"{[round(mb / t, 1) for t in saves]} MB/s, verify {mb / verify_s:.1f}, "
+          f"restore {mb / restore_s:.1f} MB/s, latest_valid (cached) "
+          f"{1e3 * latest_s:.3f} ms; a flipped byte failed verify and restore "
+          f"({rec['corrupt_restore_error'][:80]}...), a rewritten array failed "
+          f"its fingerprint ({card})")
+    print(json.dumps(rec))
+    return rec
+
+
+def long_dedup(port: Port, device, card: str, long_len: int = 1 << 20) -> dict:
+    """7c: ExactDedup.add_documents over 256 documents of 64-2,048 words
+    and 8 of 2^20 words, with repeats at both lengths: the mask equals
+    the same routing on host fingerprints (hash_batch's numpy twin for
+    the short ones, the tree's numpy twin for the long ones)."""
+    g = np.random.default_rng(SEED + 9)
+    short = [g.integers(0, 50000, int(n), dtype=np.uint32)
+             for n in g.integers(64, 2049, 256)]
+    for i in g.choice(np.arange(1, 256), 24, replace=False):
+        short[i] = short[g.integers(i)]
+    longs = [g.integers(0, 2**32, long_len, dtype=np.uint64).astype(np.uint32)
+             for _ in range(5)]
+    longs += [longs[0], longs[3], longs[0]]
+    docs = list(short)
+    for k, pos in enumerate(sorted(g.choice(257, 8, replace=False)), start=0):
+        docs.insert(int(pos) + k, longs[k])
+    ed = port.ExactDedup(device=device)
+    t0 = time.perf_counter()
+    mask = launched(port, 1 + len(longs), lambda: ed.add_documents(docs),
+                    "add_documents")
+    wall_s = time.perf_counter() - t0
+    # the same routing on host fingerprints
+    th = port.TreeHasher(port.TreeSpec(seed=ed._seed), device=device)
+    is_long = [len(d) >= 1 << 12 for d in docs]
+    fps = np.zeros(len(docs), np.uint64)
+    idx = [i for i, lng in enumerate(is_long) if not lng]
+    fps[idx] = ed.hasher.hash_batch([docs[i] for i in idx], backend="host")[:, 0]
+    for i, lng in enumerate(is_long):
+        if lng:
+            fps[i] = th.digest_host(docs[i])
+    seen, want = set(), np.zeros(len(docs), bool)
+    for i, fp in enumerate(map(int, fps)):
+        if fp not in seen:
+            seen.add(fp)
+            want[i] = True
+    check(np.array_equal(mask, want), "add_documents != host-fingerprint routing")
+    check(int((~mask[np.array(is_long)]).sum()) == 3, "long repeats not rejected")
+    rec = {"docs": len(docs), "long_docs": len(longs), "admitted": int(mask.sum()),
+           "launches": 1 + len(longs), "seconds": wall_s,
+           "tokens": int(sum(len(d) for d in docs)), "card": card}
+    print(f"add_documents: {len(docs)} docs ({len(longs)} of 2^20 words), "
+          f"{rec['tokens']} tokens in {wall_s:.3f} s; admitted {rec['admitted']}; "
+          f"mask == host-fingerprint routing ({card})")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -955,12 +1306,49 @@ def main() -> int:
                                                card, rate)
             kernels = [{**kernels, **more}[k] for k in KERNELS]
             rows += single_rows
+        # phase 7 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        tree, tree_measures = {}, []
+        with phase("phase 7a: tree fingerprints at a checkpoint size"):
+            for family, n_words, prefix in (
+                    ("multilinear", 1 << 28, 1 << 24),
+                    ("gf_multilinear", 1 << 26, 1 << 22),
+                    ("multilinear_hm", 1 << 26, 1 << 24)):
+                tree[family], m = tree_fingerprints(port, device, family,
+                                                    n_words, prefix, card)
+                tree_measures.append(m)
+        with phase("phase 7b: checkpoints"):
+            ckpt = checkpoints(port, device, card)
+        with phase("phase 7c: long-document dedup"):
+            dedup = long_dedup(port, device, card)
+        tree_launches = port.counts()
+        want7 = (sum(r["launches"] for r in tree.values()) + ckpt["launches"]
+                 + dedup["launches"])
+        print(f"phase 7 launches: {tree_launches} (7a: "
+              + ", ".join(f"{f} {r['launches']}" for f, r in tree.items())
+              + f"; 7b {ckpt['launches']}; 7c {dedup['launches']})")
+        check(tree_launches["multihash"] > 0 and tree_launches["gf_multihash"] > 0
+              and tree_launches["multihash"] + tree_launches["gf_multihash"] == want7
+              and not tree_launches["multilinear"] + tree_launches["gf_multilinear"],
+              f"phase 7 launches {tree_launches} != {want7} engine launches")
+        with phase("phase 7 measurements"):
+            for m in tree_measures:
+                m()
+            del tree_measures
+        for rec in kernels:
+            leaf = {"multihash": tree["multilinear"],
+                    "gf_multihash": tree["gf_multilinear"]}.get(rec["name"])
+            if leaf is not None:
+                rec["tree_leaf"] = {**leaf["leaf"],
+                                    "tree_launches": tree_launches[rec["name"]]}
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "rows": rows, "admission": admit,
              "launches_per_shape": per_shape,
-             "stream": stream, "kernels": kernels}, indent=1))
+             "stream": stream, "kernels": kernels, "tree": tree,
+             "checkpoint": ckpt, "long_dedup": dedup,
+             "tree_launches": tree_launches}, indent=1))
         print(f"total {time.perf_counter() - t_start:.3f} s wall; card {card}")
         print(json.dumps({"kernels": kernels}))
         print(card)

@@ -15,7 +15,7 @@ import numpy as np
 
 from ..hash import Hasher, HashSpec
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 items 7-8)"
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
 
 
 class BloomFilter:
@@ -103,7 +103,8 @@ class ExactDedup:
     ~N^2 / 2^65 (strong universality): negligible below ~10^8 docs.
 
     `mesh=` (sharded fingerprinting) and `approx_items=` (Bloom authority)
-    are not ported yet.
+    are not ported yet. Long documents take the tree route
+    (`add_documents`).
     """
 
     def __init__(self, seed: int = 0xDED0, device=None, mesh=None,
@@ -114,6 +115,8 @@ class ExactDedup:
         self.hasher = Hasher.from_spec(HashSpec(
             family="multilinear", n_hashes=1, out_bits=64,
             variable_length=True, seed=seed), device=device)
+        self._seed = seed
+        self._tree = None  # lazy: most corpora never hit the long path
         self.seen: set[int] = set()
 
     def _fingerprints(self, items, backend=None) -> np.ndarray:
@@ -144,14 +147,33 @@ class ExactDedup:
                 out[i] = True
         return out
 
+    def _tree_hasher(self):
+        if self._tree is None:
+            from ..hash.tree import TreeHasher, TreeSpec
+
+            self._tree = TreeHasher(TreeSpec(seed=self._seed),
+                                    device=self.hasher.device)
+        return self._tree
+
     def add_documents(self, docs, *, long_words: int = 1 << 12) -> np.ndarray:
-        """(B,) bool admission mask over documents shorter than
-        `long_words` (one batched launch). Longer documents take the tree
-        fingerprint route, which is not ported yet."""
+        """(B,) bool admission mask over documents of ANY length.
+
+        Documents shorter than `long_words` ride the one-launch batched
+        fingerprint; documents at or past it get tree fingerprints
+        (`hash.tree`, one leaf launch each). Routing depends on length
+        alone, so a document's verdict is stable across batch
+        compositions. First occurrence wins, in arrival order.
+        """
         docs = [np.asarray(d, np.uint32).reshape(-1) for d in docs]
         if len(docs) == 0:
             return np.zeros(0, bool)
-        if any(len(d) >= long_words for d in docs):
-            raise NotImplementedError(f"tree fingerprints for documents of "
-                                      f">= {long_words} words: {_NOT_PORTED}")
-        return self._admit(self._fingerprints(docs))
+        fps = np.zeros(len(docs), np.uint64)
+        short = [i for i, d in enumerate(docs) if len(d) < long_words]
+        if short:
+            fps[short] = self._fingerprints([docs[i] for i in short])
+        if len(short) < len(docs):
+            th = self._tree_hasher()
+            for i, d in enumerate(docs):
+                if len(d) >= long_words:
+                    fps[i] = th.fingerprint(d)
+        return self._admit(fps)

@@ -197,15 +197,14 @@ def fingerprint_bytes(data: bytes, *, seed: int = DEFAULT_SEED, keys=None,
     fingerprints are themselves a string of 64-bit values hashed again
     (two-level tree, as UMAC does). Host numpy, as in the reference.
 
-    `tree` (the reference's mesh-parallel TreeHasher route) is not ported
-    yet (ROADMAP Queue 1 item 7, `hash/tree.py`).
+    `tree` (a `hash.tree.TreeHasher`) routes EVERY call through the tree
+    fingerprint instead -- different values than the default serial layout
+    (a digest scheme, not a knob), computed on the TreeHasher's device.
     """
     if chunk_words < 1:
         raise ValueError("chunk_words must be >= 1")
     if tree is not None:
-        raise NotImplementedError(
-            "fingerprint_bytes(tree=): not ported yet: hash/tree.py is "
-            "ROADMAP Queue 1 item 7")
+        return tree.fingerprint_bytes(data)
     from . import keyring
 
     kb = keys if keys is not None else keyring.key_buffer(seed)

@@ -362,9 +362,11 @@ size_t engine_smem_bytes(int K, int pairwise) {
 // register chunk), each the tile kernel and, with more than one split, the
 // finish pass. part holds at least S * min(K, 9) * B u64 when S =
 // ceil(W / split) > 1 (the wrapper allocates it; the passes reuse it in
-// stream order). The
-// epilogue's reciprocal of mod_m is taken here, on the host. Returns the
-// first CUDA error (cudaGetLastError() after the launches).
+// stream order). Rows go on grid.y, which holds at most 65,535 blocks, so
+// a batch of more rows runs in chunks of that many row blocks, one after
+// another on the stream: one call covers any B. The epilogue's reciprocal
+// of mod_m is taken here, on the host. Returns the first CUDA error
+// (cudaGetLastError() after the launches).
 template <class F>
 int launch_engine(const void* tokens, const void* keys, const void* lens,
                   void* out, void* part, int B, int N, int W, int K,
@@ -373,27 +375,31 @@ int launch_engine(const void* tokens, const void* keys, const void* lens,
   if (F::HAS_MMA && !pairwise && split > ET_MAX_SPLIT)
     return (int)cudaErrorInvalidValue;  // the s32 sums could overflow
   const int S = W > split ? (W + split - 1) / split : 1;
-  const dim3 grid(S, (B + F::THREADS - 1) / F::THREADS);
+  constexpr int MAX_ROWS = 65535 * F::THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  const u32* t = (const u32*)tokens;
-  const int* l = (const int*)lens;
   u64* p = (u64*)part;
-  const int vec = ((uintptr_t)t % 16 == 0) && N % 4 == 0;
   const u64 mu = mod_m ? ~0ull / mod_m : 0;
-  for (int k0 = 0; k0 < K; k0 += 9) {
-    const int kn = min(9, K - k0);
-    const u64* k = (const u64*)keys + (size_t)k0 * ldk;
-    long long* o = (long long*)out + (size_t)k0 * 2;
-    const cudaError_t e =
-        pairwise ? launch_engine_chunk<F, true>(t, k, l, o, p, B, N, W, kn, K, ldk,
-                                                split, vec, mod_m, mu, grid, s)
-                 : launch_engine_chunk<F, false>(t, k, l, o, p, B, N, W, kn, K, ldk,
-                                                 split, vec, mod_m, mu, grid, s);
-    if (e != cudaSuccess) return (int)e;
-    if (S > 1) {
-      const long long n = (long long)B * kn;
-      engine_finish<F><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-          p, k, o, B, kn, K, ldk, S, mod_m, mu);
+  for (int r0 = 0; r0 < B; r0 += MAX_ROWS) {
+    const int bc = min(MAX_ROWS, B - r0);
+    const dim3 grid(S, (bc + F::THREADS - 1) / F::THREADS);
+    const u32* t = (const u32*)tokens + (size_t)r0 * N;
+    const int* l = (const int*)lens + r0;
+    const int vec = ((uintptr_t)t % 16 == 0) && N % 4 == 0;
+    for (int k0 = 0; k0 < K; k0 += 9) {
+      const int kn = min(9, K - k0);
+      const u64* k = (const u64*)keys + (size_t)k0 * ldk;
+      long long* o = (long long*)out + ((size_t)r0 * K + k0) * 2;
+      const cudaError_t e =
+          pairwise ? launch_engine_chunk<F, true>(t, k, l, o, p, bc, N, W, kn, K, ldk,
+                                                  split, vec, mod_m, mu, grid, s)
+                   : launch_engine_chunk<F, false>(t, k, l, o, p, bc, N, W, kn, K, ldk,
+                                                   split, vec, mod_m, mu, grid, s);
+      if (e != cudaSuccess) return (int)e;
+      if (S > 1) {
+        const long long n = (long long)bc * kn;
+        engine_finish<F><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+            p, k, o, bc, kn, K, ldk, S, mod_m, mu);
+      }
     }
   }
   return (int)cudaGetLastError();

@@ -63,12 +63,11 @@ def launch_engine(name: str, tokens, keys, lens, family: str, mod_m,
     """Launch engine kernel `name` on validated CUDA operands -> (B, K, 2)
     int64 slots. Above one column split (`autotune.engine_split`) the
     per-split partial sums go to a scratch tensor and the kernel's second
-    pass combines them; it is one call of the C launcher either way."""
+    pass combines them; more rows than one grid holds (65,535 row blocks)
+    run in row chunks inside the C launcher. It is one call of the C
+    launcher either way."""
     B, N = tokens.shape
     K = keys.shape[0]
-    rows = autotune.engine_rows(name)
-    if -(-B // rows) > 65535:
-        raise ValueError(f"{B} rows exceed the kernel grid's row blocks")
     plan = as_plan(mod_m)
     out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
     if B == 0:

@@ -13,7 +13,7 @@ from _torch_port import ENGINE_FAMILIES, MOD_GRID, engine_case, ragged, rng, t32
 from repro_torch.core import hostref
 from repro_torch.hash import Hasher, HashSpec
 from repro_torch.hash.hasher import planes_to_keys
-from repro_torch.hash import stream_digest_host
+from repro_torch.hash import TreeHasher, TreeSpec, stream_digest_host
 from repro_torch.kernels import _build, autotune, ref
 from repro_torch.kernels import gf_multihash as gfmh
 from repro_torch.kernels import gf_multilinear as gfk
@@ -263,3 +263,100 @@ def test_stream_digest_on_card_matches_cpu(cuda):
         assert mlk.launch_count() == before + int(b // 256 > a // 256)
     want = stream_digest_host(h, toks.numpy().view(np.uint32), 256, 256)
     assert h.digest_int(st) == hc.digest_int(stc) == want
+
+
+# -- tree fingerprints and the engine's tree-leaf shape -------------------------
+
+@pytest.mark.parametrize("family", ENGINE_FAMILIES)
+@pytest.mark.parametrize("B", [1, 255, 2**16 + 3])
+def test_engine_tree_leaf_shape_matches_plain(cuda, family, B):
+    """The tree's leaf launch: K 1, 64-bit surface, fixed length, N 256
+    (`TreeSpec()`'s leaf_words), one column split."""
+    N = 256
+    th = TreeHasher(TreeSpec(family=family, seed=0x7EE))
+    toks = torch.randint(-2**31, 2**31, (B, N), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(B)).to(cuda)
+    lens = torch.full((B,), -(N + 1), dtype=torch.int32, device=cuda)
+    kernel = "gf_multihash" if family.startswith("gf_") else "multihash"
+    assert autotune.engine_splits(N, mhk.split_of(kernel, B, N, cuda)) == 1
+    before = ops.launch_count()
+    got = th.hasher(toks)
+    assert ops.launch_count() == before + 1
+    plain = ref.gf_multihash_ref if family.startswith("gf_") else ref.multihash_ref
+    assert torch.equal(got, plain(toks, th.hasher.keys, lens, family=family,
+                                  width=N))
+
+
+@pytest.mark.parametrize("family,B", [("multilinear", 2**23 + 5),
+                                      ("gf_multilinear", 2**24 + 5)])
+def test_engine_covers_more_rows_than_one_grid(cuda, family, B):
+    """Past 65,535 row blocks (8,388,480 rows of the integer kernel,
+    16,776,960 of the carry-less one) the launcher runs row chunks: one
+    counted launch, equal to the plain version on the card."""
+    N = 8
+    wrapper = gfmh if family.startswith("gf_") else mhk
+    toks = torch.randint(-2**31, 2**31, (B, N), dtype=torch.int32, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(B))
+    keys = torch.from_numpy(rng(B).integers(0, 2**64, (1, N + 1),
+                                            dtype=np.uint64).view(np.int64)).to(cuda)
+    lens = torch.full((B,), -(N + 1), dtype=torch.int32, device=cuda)
+    before = wrapper.launch_count()
+    got = ops.multihash(toks, keys, lens, family=family, width=N)
+    assert wrapper.launch_count() == before + 1
+    plain = ref.gf_multihash_ref if family.startswith("gf_") else ref.multihash_ref
+    assert torch.equal(got, plain(toks, keys, lens, family=family, width=N))
+
+
+def test_fingerprint_array_on_card_equals_host_bytes(cuda):
+    """A CUDA tensor's bytes hashed where they lie == the same bytes
+    staged from the host == the CPU port; odd byte lengths, bf16,
+    non-contiguous and 0-d tensors."""
+    th, tc = TreeHasher(TreeSpec(leaf_words=8)), TreeHasher(
+        TreeSpec(leaf_words=8), device="cpu")
+    th256 = TreeHasher()
+    base = torch.randn(37, 29, generator=torch.Generator().manual_seed(3)).to(cuda)
+    cases = [base, base.t(), base[:, ::3], base.to(torch.bfloat16),
+             base.to(torch.bfloat16)[1:, 5:], base[2, 2], base > 0,
+             torch.arange(7, dtype=torch.uint8, device=cuda),
+             torch.arange(5, dtype=torch.int16, device=cuda),
+             torch.zeros(0, device=cuda)]
+    for x in cases:
+        raw = x.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+        for h, hc in ((th, tc), (th256, None)):
+            before = ops.launch_count()
+            got = h.fingerprint_array(x)
+            assert ops.launch_count() == before + 1
+            assert got == h.fingerprint_bytes(raw)
+            if hc is not None:
+                assert got == hc.fingerprint_array(x.cpu()) == hc.fingerprint_bytes(raw)
+
+
+def test_tree_digest_on_card_matches_cpu(cuda):
+    """fingerprint, digest_tokens (0-d tensor n_tokens on the card) and
+    digest_host agree between the card and the CPU for every family."""
+    toks = rng(7).integers(0, 2**32, 5000, dtype=np.uint64).astype(np.uint32)
+    for family in ENGINE_FAMILIES:
+        th = TreeHasher(TreeSpec(leaf_words=64, family=family))
+        tc = TreeHasher(TreeSpec(leaf_words=64, family=family), device="cpu")
+        want = tc.fingerprint(toks)
+        assert th.fingerprint(toks) == th.fingerprint(t32(toks).to(cuda)) == want
+        assert th.digest_host(toks) == want
+        buf = torch.zeros(6000, dtype=torch.int32, device=cuda)
+        buf[:5000] = t32(toks).to(cuda)
+        hi, lo = th.digest_tokens(buf, n_tokens=torch.tensor(5000, device=cuda)).tolist()
+        assert (hi << 32) | lo == want
+
+
+def test_tree_stream_on_card_matches_cpu(cuda):
+    toks = t32(rng(8).integers(0, 2**32, 70_001, dtype=np.uint64).astype(np.uint32))
+    th, tc = TreeHasher(), TreeHasher(device="cpu")
+    s, sc = th.stream(leaf_batch=16), tc.stream(leaf_batch=16)
+    # a flush (one launch on the card) once 16 leaves of 256 words are buffered
+    for a, b, flush in ((0, 1, 0), (1, 4095, 0), (4095, 4097, 1), (4097, 70_000, 1),
+                        (70_000, 70_001, 0)):
+        before = mhk.launch_count()
+        s.update(toks[a:b].to(cuda) if a % 2 else toks[a:b].numpy())
+        sc.update(toks[a:b])
+        assert mhk.launch_count() - before == flush
+    assert s.digest_int() == sc.digest_int() == th.fingerprint(toks.to(cuda))
+    assert s.digest_int() == tc.fingerprint(toks)

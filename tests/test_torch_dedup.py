@@ -84,8 +84,9 @@ def test_exact_dedup_matches_reference():
     docs = ragged(rng(9), 6, 20) + items[:3]
     np.testing.assert_array_equal(t.add_documents(docs), j.add_documents(docs))
     assert t.seen == j.seen
-    with pytest.raises(NotImplementedError):
-        t.add_documents([np.zeros(5000, np.uint32)])
+    long = [np.zeros(5000, np.uint32), docs[0], np.zeros(5000, np.uint32)]
+    np.testing.assert_array_equal(t.add_documents(long), j.add_documents(long))
+    assert t.seen == j.seen
     for kw in ({"mesh": object()}, {"approx_items": 10}):
         with pytest.raises(NotImplementedError):
             TExact(device="cpu", **kw)

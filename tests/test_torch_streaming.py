@@ -106,8 +106,10 @@ def test_fingerprint_bytes_matches_reference(data, chunk_words):
 def test_fingerprint_bytes_goldens_and_tree_route():
     assert t_fingerprint_bytes(b"") == 0x425B0BAD5E070A56
     assert t_fingerprint_bytes(b"abc") == 0xEB9E77C9EC64DBB2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        t_fingerprint_bytes(b"abc", tree=object())
+    from repro_torch.hash.tree import TreeHasher
+
+    th = TreeHasher(device="cpu")
+    assert t_fingerprint_bytes(b"abc", tree=th) == th.fingerprint_bytes(b"abc")
 
 
 def _raises_like(fn_t, fn_j):
