@@ -85,6 +85,37 @@ top of them -- at a deployment's scale and checks every result:
       8 of 2^20 words (tree route) with repeats at both lengths: the mask
       equals the same routing on host fingerprints.
 
+8. sharded admission (`hash.distributed`, `hash.service`, `hash.faults`),
+   a path of its own after phase 7, on D logical shards of the card
+   (`parallel.data_mesh(device=, n_shards=D)`, D in {1, 4}):
+   a. `ShardedHasher` at phase 3's pure shape: `__call__`,
+      `probe_indices(m)` and `shard_ids(64)` == phase 3's single-device
+      outputs, for multilinear and gf_multilinear;
+   b. `DeviceShardedBloom(n_items=10**8, fp_rate=1e-3)` (1.44 GB of bit
+      bytes, k 9) over the first 8 of phase 4's batches: D in {1, 4} x the
+      routed, all_gather and host transports (multilinear), gf_multilinear
+      routed at D 4, and a routed D 4 filter that overflows its buckets
+      (capacity_factor 0.5, slack 0; it must fall back), one at a time:
+      each `check_and_add_batch` verdict == the negation of a host
+      `BloomFilter`'s pre-batch `contains_batch`, every planted repeat of
+      an earlier batch rejected, the final words (packed on the card) ==
+      the host filter's bits. The launch part of a routed add and
+      contains runs under `torch.cuda.set_sync_debug_mode("error")`.
+      docs/s and bytes moved a call for each; then, for routed D 4, the
+      staging time, the launch part's time and the card's busy share
+      (torch.profiler);
+   c. `AdmissionService.over_bloom_shards(4, 10**8, mesh=<4 logical
+      shards>)` over 4 batches: fault-free twice, and twice under one
+      seeded `FaultPlan` (shard 1 down for its calls 1-3, timeouts,
+      corrupt replies; fail_open); after `reconcile_all()` every shard
+      filter's words == the fault-free run's, and the two faulty runs
+      give identical events and stats;
+   d. `TreeHasher(mesh=)` over phase 7a's 256 MiB carry-less words ==
+      phase 7a's root; `ExactDedup(mesh=, approx_items=10**7)` == the
+      unsharded fingerprints and a host filter over the same 2-word keys;
+      `HashPipeline(mesh=, admission=8c's service)` == the unsharded
+      pipeline over the fault-free twin.
+
 The launch counts are set to 0 before phase 3 and read after phase 6: that
 run is the main path (99 engine launches of multihash, 35 of gf_multihash;
 printed per phase). Launches made to compare or to time come after. They
@@ -92,7 +123,11 @@ are set to 0 again before phase 7, whose every call is checked for its
 exact engine launches: one per `fingerprint*`/`digest_tokens` call and
 per `TreeStream` flush, one per checkpoint leaf array plus one per path
 and one per root, one for the short documents' batch and one per long
-document. Any failed check exits non-zero. The last line is the JSON
+document; and again before phase 8, whose every call is checked for its
+exact engine launches too: D per sharded call (2D for a routed call that
+falls back), one per unsharded call, and for a service call one for the
+router, one for the L1 check, one L1 add a shard group and D per shard
+filter call. Any failed check exits non-zero. The last line is the JSON
 device record.
 """
 from __future__ import annotations
@@ -177,12 +212,16 @@ class Port:
         from repro_torch.core import gf, hostref, keys, limbs
         from repro_torch.core.pytree import flatten_with_paths
         from repro_torch.data import BloomFilter, ExactDedup, HashPipeline, PipelineConfig
-        from repro_torch.hash import Hasher, HashSpec, TreeHasher, TreeSpec, streaming
+        from repro_torch.hash import (AdmissionService, DeviceShardedBloom,
+                                      FaultEvent, FaultPlan, FaultyTransport,
+                                      Hasher, HashSpec, ProbeTransport,
+                                      TreeHasher, TreeSpec, streaming)
         from repro_torch.kernels import _build, autotune, ops, ref
         from repro_torch.kernels import gf_multihash as gfmh
         from repro_torch.kernels import gf_multilinear as gfk
         from repro_torch.kernels import multihash as mhk
         from repro_torch.kernels import multilinear as mlk
+        from repro_torch.parallel import data_mesh
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
         self.gf, self.keys, self.streaming = gf, keys, streaming
@@ -195,6 +234,11 @@ class Port:
                                                           CorruptCheckpointError)
         self.build, self.ops, self.ref = _build, ops, ref
         self.autotune = autotune
+        self.data_mesh, self.DeviceShardedBloom = data_mesh, DeviceShardedBloom
+        self.ProbeTransport, self.AdmissionService = ProbeTransport, AdmissionService
+        self.FaultEvent, self.FaultPlan = FaultEvent, FaultPlan
+        self.FaultyTransport = FaultyTransport
+        self.tally = 0  # engine launches `launched` has checked
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
         self.single = {"multilinear": mlk.hash_blocks,
@@ -843,6 +887,34 @@ def device_ops_per_call(port: Port, fn):
     return (len(names) or None), names
 
 
+def device_busy(port: Port, fn):
+    """fn() once under torch.profiler: (wall ms, device kernel ms, device
+    copy and fill ms), the device times summed over the card's operations
+    (one stream, so they do not overlap); None when the profiler sees
+    nothing here."""
+    torch = port.torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # the profiler itself, not the code under test
+        print(f"torch.profiler failed on the card: {exc!r}")
+        return None
+    if not dev:
+        return None
+    copies = sum(e.time_range.elapsed_us() for e in dev
+                 if e.name.startswith(("Memcpy", "Memset")))
+    kernels = sum(e.time_range.elapsed_us() for e in dev) - copies
+    return wall, kernels / 1e3, copies / 1e3
+
+
 def measure_single(port: Port, device, shapes: dict, launches: dict,
                    card: str, rate: float):
     """Single-hash kernels vs their plain versions at phase 6's shapes:
@@ -929,12 +1001,16 @@ def measure_single(port: Port, device, shapes: dict, launches: dict,
 # phase 7: tree fingerprints and checkpoints
 # --------------------------------------------------------------------------
 
-def launched(port: Port, n: int, fn, what: str):
+def launched(port: Port, n, fn, what: str):
     """Run fn(); require exactly n engine launches on the card (kernels 1-2,
     counted by their wrappers) and n engine dispatches, and no launch of
-    another kernel. Returns fn()'s result."""
+    another kernel. `n` may be a function, read after fn() (a count that
+    depends on what fn did, such as overflow replays). Returns fn()'s
+    result; `port.tally` adds n."""
     c0, d0 = port.counts(), port.ops.launch_count()
     out = fn()
+    n = n() if callable(n) else n
+    port.tally += n
     c1 = port.counts()
     engine = sum(c1[k] - c0[k] for k in ("multihash", "gf_multihash"))
     other = {k: c1[k] - c0[k] for k in ("multilinear", "gf_multilinear")}
@@ -1241,6 +1317,333 @@ def long_dedup(port: Port, device, card: str, long_len: int = 1 << 20) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 8: sharded admission
+# --------------------------------------------------------------------------
+
+SHARDS = (1, 4)
+
+
+def logical(port: Port, device, D: int):
+    """A mesh of D logical shards of the card."""
+    return port.data_mesh(device=device, n_shards=D)
+
+
+def sharded_pure(port: Port, device, pure: dict):
+    """8a: `ShardedHasher` over D logical shards at phase 3's pure shape
+    (B 65,536 x N 1,024, K 9): `__call__`, `probe_indices(m)` and
+    `shard_ids(64)` == phase 3's single-device outputs, D launches a call.
+    Returns the record and a closure that times `__call__` (run once the
+    phase's launches are read)."""
+    torch = port.torch
+    toks, m = pure["tokens"], pure["m"]
+    rec, hashers = {}, {}
+    for D in SHARDS:
+        mesh = logical(port, device, D)
+        for family in ("multilinear", "gf_multilinear"):
+            ref = pure[family]
+            sh = ref["hasher"].sharded(mesh)
+            for name, fn, want in (
+                    ("__call__", lambda: sh(toks), ref["slots"]),
+                    ("probe_indices", lambda: sh.probe_indices(toks, m),
+                     ref["probes"]),
+                    ("shard_ids", lambda: sh.shard_ids(toks, 64), ref["shards"])):
+                got = launched(port, D, fn, f"8a {family} D={D} {name}")
+                check(torch.equal(got, want), f"8a {family} D={D}: {name} "
+                      "!= phase 3's single-device output")
+            hashers[f"{family}/D{D}"] = sh
+            rec[f"{family}/D{D}"] = {"launches_per_call": D}
+    print(f"8a: __call__, probe_indices(m={m}), shard_ids(64) over 1 and 4 "
+          "logical shards == phase 3's outputs, D launches a call")
+
+    def measure():
+        for label, sh in hashers.items():
+            rec[label]["call_ms"] = timed(port, lambda: sh(toks), 5)
+        print("8a __call__ ms: " + json.dumps(
+            {k: v["call_ms"] for k, v in rec.items()}))
+    return rec, measure
+
+
+def earlier_repeats(batches) -> list:
+    """Per batch: the planted repeats of a document offered in an EARLIER
+    batch (a repeat of one earlier in the same batch admits under the
+    sharded filter's pre-batch contract, as under the host filter's
+    pre-batch `contains_batch`)."""
+    seen, out = set(), []
+    for docs, planted in batches:
+        keys = [d.tobytes() for d in docs]
+        out.append(np.array([bool(p) and k in seen for p, k in zip(planted, keys)]))
+        seen.update(keys)
+    return out
+
+
+def sharded_bloom(port: Port, device, batches, card: str,
+                  n_items: int = 10**8) -> dict:
+    """8b: `DeviceShardedBloom(n_items, fp_rate=1e-3)` over D in {1, 4}
+    logical shards x the routed, all_gather and host transports (family
+    multilinear), the carry-less family at routed D 4, and a routed D 4
+    filter whose buckets overflow (capacity_factor 0.5, slack 0), one at a
+    time over the batches: each `check_and_add_batch` verdict == the
+    negation of a host `BloomFilter`'s pre-batch `contains_batch`, every
+    planted repeat of an earlier batch rejected, the final words == the
+    host filter's bits; D launches a call (2D when it falls back). The
+    launch part of a routed add and contains runs under
+    `torch.cuda.set_sync_debug_mode("error")`: no host sync."""
+    torch = port.torch
+    docs = [d for d, _ in batches]
+    earlier = earlier_repeats(batches)
+    n_docs = sum(len(d) for d in docs)
+    host = {}
+    for family in ("multilinear", "gf_multilinear"):
+        bf = port.BloomFilter(n_items=n_items, fp_rate=1e-3, family=family,
+                              device=device)
+        want, t0 = [], time.perf_counter()
+        for i, d in enumerate(docs):
+            want.append(~launched(port, 1, lambda: bf.contains_batch(d),
+                                  f"8b host {family} contains {i}"))
+            launched(port, 1, lambda: bf.add_batch(d), f"8b host {family} add {i}")
+        dt = time.perf_counter() - t0
+        host[family] = (want, torch.from_numpy(bf.bits.view(np.int64)).to(device))
+        print(f"8b host BloomFilter/{family}: contains + add, {n_docs} docs in "
+              f"{dt:.3f} s: {n_docs / dt} docs/s ({card})")
+        del bf
+    # the launch part reads nothing back
+    f = port.DeviceShardedBloom(n_items=n_items, fp_rate=1e-3,
+                                mesh=logical(port, device, 4))
+    st = f._stage(docs[0])
+    torch.cuda.synchronize()
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            f._add_staged(st)
+            return f._verdict_staged(st, insert=False)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    out = launched(port, 8, guarded, "8b guarded launch part").cpu().numpy()
+    check(bool(out[:st.B].all()) and not out[st.Bp:].any(),
+          "8b: a routed add's documents are not all present")
+    print("8b: routed add + contains launch parts (D 4) ran under "
+          "sync_debug_mode('error'): no host sync")
+    del f, st, out
+    tiny = port.ProbeTransport("routed", capacity_factor=0.5, capacity_slack=0)
+    runs = ([("multilinear", kind, D) for kind in ("routed", "all_gather", "host")
+             for D in SHARDS]
+            + [("gf_multilinear", "routed", 4), ("multilinear", tiny, 4)])
+    rec = {}
+    for family, kind, D in runs:
+        label = (f"{family}/{getattr(kind, 'kind', kind)}/D{D}"
+                 + ("/overflow" if kind is tiny else ""))
+        f = port.DeviceShardedBloom(n_items=n_items, fp_rate=1e-3,
+                                    mesh=logical(port, device, D),
+                                    probe_transport=kind, family=family)
+        check(f.m == bloom_m(n_items) and f.k == 9, f"8b {label}: sizing")
+        want, words = host[family]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, d in enumerate(docs):
+            fb = f.stats["overflow_fallbacks"]
+            v = launched(port, lambda: D * (1 + f.stats["overflow_fallbacks"] - fb),
+                         lambda: f.check_and_add_batch(d), f"8b {label} batch {i}")
+            check(np.array_equal(v, want[i]), f"8b {label} batch {i}: verdict "
+                  "!= the host filter's pre-batch contains_batch")
+            check(not v[earlier[i]].any(),
+                  f"8b {label} batch {i}: a planted repeat was admitted")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(torch.equal(f.words(), words),
+              f"8b {label}: final words != the host filter's bits")
+        falls = f.stats["overflow_fallbacks"]
+        check((falls > 0) == (kind is tiny),
+              f"8b {label}: overflow_fallbacks {falls}")
+        rec[label] = {"docs": n_docs, "seconds": dt, "docs_per_s": n_docs / dt,
+                      "bytes_moved_per_call": f.bytes_moved / len(docs),
+                      "overflow_fallbacks": falls, "m": f.m, "k": f.k,
+                      "m_local": f.m_local, "card": card}
+        print(f"8b {label}: {n_docs} docs in {dt:.3f} s: {n_docs / dt} docs/s, "
+              f"{f.bytes_moved / len(docs)} bytes moved a call, "
+              f"overflow_fallbacks {falls} ({card})")
+        del f
+        torch.cuda.empty_cache()
+    for D in SHARDS:
+        r, a = rec[f"multilinear/routed/D{D}"], rec[f"multilinear/all_gather/D{D}"]
+        print(f"8b D{D}: routed / all_gather bytes a call = "
+              f"{r['bytes_moved_per_call'] / a['bytes_moved_per_call']}")
+
+    def measure():
+        """Where a routed D 4 call's time goes: host staging alone, the
+        launch part (events around a read-only verdict launch), and the
+        card's busy time over the 8 calls (torch.profiler)."""
+        f = port.DeviceShardedBloom(n_items=n_items, fp_rate=1e-3,
+                                    mesh=logical(port, device, 4))
+        t0 = time.perf_counter()
+        staged = [f._stage(d) for d in docs]
+        torch.cuda.synchronize()
+        stage_ms = 1e3 * (time.perf_counter() - t0) / len(docs)
+        launch_ms = timed(port, lambda: f._verdict_staged(staged[0], insert=False), 10)
+        del staged
+        busy = device_busy(port, lambda: [f.check_and_add_batch(d) for d in docs])
+        out = {"stage_ms_per_batch": stage_ms, "launch_part_ms": launch_ms}
+        if busy is not None:
+            wall, kern, copy = busy
+            out.update({"profiled_wall_ms_per_batch": wall / len(docs),
+                        "device_kernel_ms_per_batch": kern / len(docs),
+                        "device_copy_ms_per_batch": copy / len(docs),
+                        "device_idle_share": 1 - (kern + copy) / wall})
+        rec["multilinear/routed/D4"]["breakdown"] = out
+        print("8b routed D4 breakdown: " + json.dumps(out) + f" ({card})")
+        del f
+        torch.cuda.empty_cache()
+    return rec, measure
+
+
+def service_launches(svc, backends, D: int, calls: bool):
+    """A function of the engine launches an `AdmissionService` call makes,
+    from its counters read before it and after: per `admit_batch` the
+    router and the L1 `contains_batch` (one each) and one L1 `add_batch` a
+    shard group; D per executed shard-filter call and per overflow replay."""
+    def snap():
+        return (svc.stats["l2_calls"],
+                sum(b.calls[op] for b in backends
+                    for op in ("admit", "contains", "add")),
+                sum(b.filt.stats["overflow_fallbacks"] for b in backends))
+    before = snap()
+
+    def n():
+        after = snap()
+        return (2 * calls + (after[0] - before[0]) * calls
+                + D * (after[1] - before[1] + after[2] - before[2]))
+    return n
+
+
+def sharded_service(port: Port, device, batches, card: str,
+                    n_items: int = 10**8) -> tuple:
+    """8c: `AdmissionService.over_bloom_shards(4, n_items, mesh=<4 logical
+    shards>)` (L1 2^20 items) over the batches: two fault-free services, and
+    twice the same seeded `FaultPlan` (shard 1 down for its calls 1-3,
+    20 % timeouts and 10 % corrupt replies) with `fail_open`. After
+    `reconcile_all()` every shard filter's words == the fault-free run's,
+    and the two faulty runs give identical `events` and `stats`. Returns
+    the record and the two fault-free services (for 8d)."""
+    torch = port.torch
+    mesh, D = logical(port, device, 4), 4
+    docs = [d for d, _ in batches]
+    n_docs = sum(len(d) for d in docs)
+
+    def run(plan):
+        svc = port.AdmissionService.over_bloom_shards(
+            4, n_items, mesh=mesh, l1_items=1 << 20, policy="fail_open")
+        backends = svc.transport.backends
+        if plan is not None:
+            svc.transport = port.FaultyTransport(svc.transport, plan, svc.clock)
+        t0 = time.perf_counter()
+        admitted = 0
+        for i, d in enumerate(docs):
+            admitted += int(launched(
+                port, service_launches(svc, backends, D, True),
+                lambda: svc.admit_batch(d), f"8c batch {i}").sum())
+        ok = launched(port, service_launches(svc, backends, D, False),
+                      svc.reconcile_all, "8c reconcile_all")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(ok and not svc.degraded, "8c: the service did not recover")
+        return svc, backends, [b.filt.words() for b in backends], admitted, dt
+
+    healthy, twin = run(None), run(None)
+    check(all(torch.equal(a, b) for a, b in zip(healthy[2], twin[2])),
+          "8c: two fault-free services differ")
+    faulty = []
+    for _ in range(2):
+        plan = port.FaultPlan(SEED, events=[port.FaultEvent(
+            "crash", shard=1, at=1, until=4)], p_timeout=0.2, p_corrupt=0.1)
+        svc, _, words, admitted, dt = run(plan)
+        check(all(torch.equal(a, b) for a, b in zip(words, healthy[2])),
+              "8c: reconciled shard words != the fault-free run's")
+        faulty.append((list(svc.events), dict(svc.stats), admitted, dt))
+        del svc, words
+        torch.cuda.empty_cache()
+    check(faulty[0][0] == faulty[1][0] and faulty[0][1] == faulty[1][1],
+          "8c: the same fault plan gave different events or stats")
+    stats = faulty[0][1]
+    check(stats["breaker_opens"] > 0 and stats["reconciled_items"] > 0
+          and stats["timeouts"] > 0 and stats["corrupt_replies"] > 0,
+          f"8c: the plan injected too little: {stats}")
+    rec = {"docs": n_docs, "healthy_seconds": healthy[4],
+           "healthy_docs_per_s": n_docs / healthy[4],
+           "healthy_admitted": healthy[3], "healthy_stats": dict(healthy[0].stats),
+           "faulty_seconds": faulty[0][3], "faulty_docs_per_s": n_docs / faulty[0][3],
+           "faulty_admitted": faulty[0][2], "faulty_stats": stats,
+           "events": len(faulty[0][0]), "card": card}
+    print(f"8c: {n_docs} docs through 4 service shards x 4 logical shards: "
+          f"fault-free {n_docs / healthy[4]} docs/s, under the plan "
+          f"{n_docs / faulty[0][3]} docs/s ({card}); {len(faulty[0][0])} "
+          f"events, identical in two runs; stats {stats}; reconciled words "
+          "== the fault-free run's")
+    return rec, healthy[0], twin[0]
+
+
+def lifted_routes(port: Port, device, batches, tree_root: int, svc_a, svc_b,
+                  card: str, n_words: int = 1 << 26,
+                  approx_items: int = 10**7) -> dict:
+    """8d: the routes this slice lifted, once each, over 4 logical shards:
+    `TreeHasher(mesh=)` over phase 7a's carry-less words == phase 7a's
+    root; `ExactDedup(mesh=, approx_items=)` over two batches: fingerprints
+    == the unsharded ones and verdicts == a host `BloomFilter` over the
+    same 2-word keys; `HashPipeline(mesh=, admission=8c's service)` ==
+    `HashPipeline(admission=its fault-free twin)` without a mesh."""
+    torch = port.torch
+    mesh, D = logical(port, device, 4), 4
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    x = torch.randint(-2**31, 2**31, (n_words,), generator=gen,
+                      dtype=torch.int32, device=device)
+    th = port.TreeHasher(port.TreeSpec(family="gf_multilinear"), mesh=mesh)
+    fp = launched(port, D, lambda: th.fingerprint_array(x), "8d TreeHasher(mesh=)")
+    check(fp == tree_root, f"8d: sharded tree root {fp:#x} != phase 7a's "
+          f"{tree_root:#x}")
+    del x
+    ed = port.ExactDedup(mesh=mesh, approx_items=approx_items)
+    plain = port.ExactDedup(device=device)
+    bf = port.BloomFilter(n_items=approx_items, fp_rate=1e-3,
+                          seed=ed._seed ^ 0xB100, device=device)
+    earlier = earlier_repeats(batches[:2])
+    for i in (0, 1):
+        d = batches[i][0]
+        fps = launched(port, 1, lambda: plain._fingerprints(d), "8d fingerprints")
+        rows = [np.array([fp & 0xFFFFFFFF, fp >> 32], np.uint32)
+                for fp in map(int, fps)]
+        want = ~launched(port, 1, lambda: bf.contains_batch(rows), "8d host contains")
+        launched(port, 1, lambda: bf.add_batch(rows), "8d host add")
+        got = launched(port, 2 * D, lambda: ed.check_and_add_batch(d),
+                       "8d ExactDedup(mesh=, approx_items=)")
+        check(np.array_equal(got, want), "8d: approximate dedup verdicts != "
+              "the host filter's over the same keys")
+        check(not got[earlier[i]].any(), "8d: a planted repeat was admitted")
+    d = batches[2][0]
+    check(np.array_equal(
+        launched(port, D, lambda: ed._fingerprints(d), "8d sharded fingerprints"),
+        launched(port, 1, lambda: plain._fingerprints(d), "8d fingerprints")),
+          "8d: sharded fingerprints != unsharded")
+    cfg = port.PipelineConfig(seq_len=2048, batch_size=8, n_shards=4, shard_id=0)
+    pa = port.HashPipeline(cfg, mesh=mesh, admission=svc_a)
+    pb = port.HashPipeline(cfg, admission=svc_b, device=device)
+    d = batches[4][0]
+    backends = svc_a.transport.backends, svc_b.transport.backends
+    na, nb = (service_launches(s, b, D, True) for s, b in zip((svc_a, svc_b), backends))
+    ra = launched(port, lambda: D + na(), lambda: pa.admit_batch(d),
+                  "8d HashPipeline(mesh=, admission=)")
+    rb = launched(port, lambda: 1 + nb(), lambda: pb.admit_batch(d),
+                  "8d HashPipeline(admission=)")
+    check(ra == rb and pa.stats == pb.stats and svc_a.stats == svc_b.stats,
+          "8d: sharded pipeline routes != unsharded")
+    rec = {"tree_root": f"{fp:#018x}", "approx_dedup_docs": 2 * len(batches[0][0]),
+           "pipeline": pa.stats, "card": card}
+    print(f"8d: TreeHasher(mesh=4) root {fp:#018x} == phase 7a; ExactDedup("
+          f"mesh=, approx_items={approx_items}) == host filter over 2-word "
+          f"keys; HashPipeline(mesh=, admission=) routes {pa.stats} == "
+          "unsharded")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1335,7 +1738,34 @@ def main() -> int:
             for m in tree_measures:
                 m()
             del tree_measures
+        # phase 8 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        port.tally = 0
+        with phase("phase 8a: sharded hashing at the pure shape"):
+            shard_pure, measure_8a = sharded_pure(port, device, pure)
+        with phase("phase 8b: device-sharded Bloom filters at 10^8 items"):
+            shard_bloom, measure_8b = sharded_bloom(port, device, batches[:8],
+                                                    card)
+        with phase("phase 8c: the admission service under faults"):
+            shard_svc, svc_a, svc_b = sharded_service(port, device, batches[:4],
+                                                      card)
+        with phase("phase 8d: the lifted routes"):
+            lifted = lifted_routes(port, device, batches, int(
+                tree["gf_multilinear"]["root"], 16), svc_a, svc_b, card)
+        del svc_a, svc_b
+        shard_launches = port.counts()
+        print(f"phase 8 launches: {shard_launches} (checked call by call: "
+              f"{port.tally})")
+        check(shard_launches["multihash"] > 0 and shard_launches["gf_multihash"] > 0
+              and shard_launches["multihash"] + shard_launches["gf_multihash"]
+              == port.tally
+              and not shard_launches["multilinear"] + shard_launches["gf_multilinear"],
+              f"phase 8 launches {shard_launches} != {port.tally} engine launches")
+        with phase("phase 8 measurements"):
+            measure_8a()
+            measure_8b()
         for rec in kernels:
+            rec["phase8_launches"] = shard_launches[rec["name"]]
             leaf = {"multihash": tree["multilinear"],
                     "gf_multihash": tree["gf_multilinear"]}.get(rec["name"])
             if leaf is not None:
@@ -1348,7 +1778,10 @@ def main() -> int:
              "launches_per_shape": per_shape,
              "stream": stream, "kernels": kernels, "tree": tree,
              "checkpoint": ckpt, "long_dedup": dedup,
-             "tree_launches": tree_launches}, indent=1))
+             "tree_launches": tree_launches,
+             "sharded": {"pure": shard_pure, "bloom": shard_bloom,
+                         "service": shard_svc, "lifted": lifted,
+                         "launches": shard_launches}}, indent=1))
         print(f"total {time.perf_counter() - t_start:.3f} s wall; card {card}")
         print(json.dumps({"kernels": kernels}))
         print(card)

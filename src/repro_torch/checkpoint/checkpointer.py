@@ -17,7 +17,7 @@ leaves are stored as float32 with dtype "bfloat16" and fingerprinted after
 that conversion. A tensor on the card is fingerprinted there before it is
 copied to the host, and `restore` fingerprints each array on the device
 it uploads it to. Sharded restore (`mesh=`, `fsdp_pods=`) waits for the
-port of `parallel/` and `train/`.
+port of `parallel/`'s sharding rules.
 """
 from __future__ import annotations
 
@@ -43,8 +43,8 @@ from ..hash.tree import default_tree_hasher, root_of_leaf_fingerprints
 # `migrate_legacy_manifest(step_dir)` upgrades one in place.
 _SCHEME_TREE = "tree-v1"
 _SCHEME_LEGACY = "stream-v0"
-_NOT_PORTED = ("not ported yet: sharded restore needs parallel/ and "
-               "train/ (ROADMAP Queue 1 item 14)")
+_NOT_PORTED = ("not ported yet: sharded restore needs parallel/'s "
+               "sharding rules (ROADMAP Queue 1 item 7)")
 
 
 class UnsupportedManifestScheme(RuntimeError):

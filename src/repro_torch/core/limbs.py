@@ -13,7 +13,7 @@ the port carries every 32-bit lane and every 64-bit accumulator in int64:
 
 The reference does this with (hi, lo) uint32 limb pairs and a 16-bit digit
 trick because the TPU has no 64-bit lanes (`repro.core.limbs`); the CUDA
-kernels use native `uint64_t` and `%` instead.
+kernels use native `uint64_t` and a host reciprocal instead.
 """
 from __future__ import annotations
 
@@ -29,9 +29,11 @@ class ModPlan:
     """A validated 32-bit modulus for `mod_u64` and the kernels' `mod_m`.
 
     The reference's plan also carries a 96-bit Barrett reciprocal for its
-    32-bit limb arithmetic; the port needs none (the kernels use the native
-    u64 `%`, the plain version 16-bit Horner steps), so the plan is the
-    modulus and its power-of-two flag.
+    32-bit limb arithmetic. The port's plan is the modulus and its
+    power-of-two flag: the engine kernels get their own 64-bit reciprocal
+    floor((2^64 - 1) / m) from the C launcher on the host
+    (`csrc/engine_tile.cuh::mod_by`), and the plain version reduces in
+    16-bit Horner steps (`mod_u64`).
     """
 
     m: int

@@ -14,8 +14,7 @@ import math
 import numpy as np
 
 from ..hash import Hasher, HashSpec
-
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
+from ..parallel.sharding import home_device
 
 
 class BloomFilter:
@@ -102,25 +101,45 @@ class ExactDedup:
     """64-bit fingerprint set. Collision probability for N docs is
     ~N^2 / 2^65 (strong universality): negligible below ~10^8 docs.
 
-    `mesh=` (sharded fingerprinting) and `approx_items=` (Bloom authority)
-    are not ported yet. Long documents take the tree route
-    (`add_documents`).
+    With `mesh`, batched fingerprinting scales out over the mesh data axis
+    (`hash.distributed.ShardedHasher`: B/D rows hashed a shard, the same
+    values), and long documents' tree leaves shard too. The seen-set stays
+    on the host -- it is the sequential arrival-order authority.
+
+    With `approx_items=N` the host set is replaced by a
+    `DeviceShardedBloom` admission authority over `mesh` (FP rate 1e-3,
+    probes moved under `probe_transport`, default "routed"): dedup for
+    corpora whose exact fingerprint set won't fit host memory. Verdicts
+    then carry Bloom semantics: a ~1e-3 false-duplicate rate, and
+    in-batch duplicates ALL admit (pre-batch-state contract) instead of
+    first-occurrence-wins. `device` defaults to the mesh's first device,
+    else the card.
     """
 
     def __init__(self, seed: int = 0xDED0, device=None, mesh=None,
-                 approx_items: int | None = None):
-        if mesh is not None or approx_items is not None:
-            raise NotImplementedError(f"ExactDedup(mesh=, approx_items=): "
-                                      f"{_NOT_PORTED}")
+                 approx_items: int | None = None, probe_transport="routed"):
+        device = home_device(mesh, device)
         self.hasher = Hasher.from_spec(HashSpec(
             family="multilinear", n_hashes=1, out_bits=64,
             variable_length=True, seed=seed), device=device)
         self._seed = seed
+        self._mesh = mesh
+        self._sharded = self.hasher.sharded(mesh) if mesh is not None else None
         self._tree = None  # lazy: most corpora never hit the long path
+        self._bloom = None
+        if approx_items is not None:
+            from ..hash.distributed import DeviceShardedBloom
+
+            self._bloom = DeviceShardedBloom(
+                n_items=int(approx_items), seed=seed ^ 0xB100, mesh=mesh,
+                probe_transport=probe_transport, device=device)
         self.seen: set[int] = set()
 
     def _fingerprints(self, items, backend=None) -> np.ndarray:
-        """(B,) uint64 variable-length fingerprints, one launch per batch."""
+        """(B,) uint64 variable-length fingerprints, one launch per batch
+        (one a shard with a mesh)."""
+        if self._sharded is not None and backend is None:
+            return self._sharded.hash_batch(items)[:, 0]
         return self.hasher.hash_batch(items, backend=backend)[:, 0]
 
     def check_and_add(self, tokens) -> bool:
@@ -139,7 +158,15 @@ class ExactDedup:
         return self._admit(self._fingerprints(items))
 
     def _admit(self, fps) -> np.ndarray:
-        """Arrival order: first occurrence (in the batch or before) wins."""
+        """Admission over precomputed fingerprints. Exact mode: arrival
+        order, first occurrence (in the batch or before) wins. Approximate
+        mode (`approx_items=`): the 64-bit fingerprints feed the
+        device-sharded Bloom authority as 2-word keys (lo, hi) --
+        pre-batch-state verdicts."""
+        if self._bloom is not None:
+            rows = [np.array([fp & 0xFFFFFFFF, fp >> 32], np.uint32)
+                    for fp in map(int, np.asarray(fps, np.uint64))]
+            return self._bloom.check_and_add_batch(rows)
         out = np.zeros(len(fps), bool)
         for i, fp in enumerate(map(int, fps)):
             if fp not in self.seen:
@@ -152,7 +179,7 @@ class ExactDedup:
             from ..hash.tree import TreeHasher, TreeSpec
 
             self._tree = TreeHasher(TreeSpec(seed=self._seed),
-                                    device=self.hasher.device)
+                                    device=self.hasher.device, mesh=self._mesh)
         return self._tree
 
     def add_documents(self, docs, *, long_words: int = 1 << 12) -> np.ndarray:

@@ -1,7 +1,6 @@
 """Hash-powered data pipeline: the paper's families doing production work.
 
-The port of `repro.data.pipeline` (`mesh=` and `admission=` are not ported
-yet and raise).
+The port of `repro.data.pipeline`, route for route.
 
 Every routing decision is a strongly universal hash of the *content*:
   - train/eval split:   h(doc) mod 100 < eval_pct  (stable under reshards)
@@ -22,8 +21,8 @@ from typing import Iterator
 
 import numpy as np
 
-from ..core.device import resolve_device
 from ..hash import Hasher, HashSpec
+from ..parallel.sharding import home_device
 
 # Per-purpose base seeds for the fused triple (stream order: fp, split, shard)
 _FP_SEED = 0xF1F0
@@ -56,18 +55,25 @@ class HashPipeline:
 
     def __init__(self, cfg: PipelineConfig, mesh=None, admission=None,
                  device=None):
-        if mesh is not None or admission is not None:
-            raise NotImplementedError(
-                "HashPipeline(mesh=, admission=): not ported yet (ROADMAP "
-                "Queue 1 items 8-9)")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = home_device(mesh, device)
         self.seen_fingerprints: set[int] = set()
+        # optional fault-tolerant dedup: when an `AdmissionService`
+        # (hash.service) is supplied, the duplicate decision is delegated
+        # to its hierarchical L1/L2 filters (approximate, Bloom fp_rate;
+        # shard-scalable; keeps deciding through backend outages per its
+        # degradation policy) instead of the exact local set. Split/shard
+        # routing is unchanged either way.
+        self.admission = admission
         # fp / split / shard as one fused 3-hash Hasher (explicit seeds)
         self.route_hasher = Hasher.from_spec(HashSpec(
             family="multilinear", n_hashes=3, out_bits=64,
             variable_length=True, seed=(_FP_SEED, _SPLIT_SEED, _SHARD_SEED)),
             device=self.device)
+        # mesh-parallel routing: batched hashing partitioned over the mesh
+        # data axis (the same values -> the same routing decisions)
+        self._sharded = (self.route_hasher.sharded(mesh)
+                         if mesh is not None else None)
         self.stats = {"docs": 0, "dup": 0, "eval": 0, "other_shard": 0, "kept": 0}
 
     def _route_hashes(self, docs, backend: str | None = None) -> np.ndarray:
@@ -76,16 +82,20 @@ class HashPipeline:
         The fingerprint keeps all 64 accumulator bits; split/shard decisions
         use only the high 32 (`>> 32` in _route_one): strong universality
         (Thm 3.1) holds for the finished hash, not the accumulator's low
-        bits.
+        bits. With a mesh, one launch a shard.
         """
+        if self._sharded is not None and backend is None:
+            return self._sharded.hash_batch(docs)
         return self.route_hasher.hash_batch(docs, backend=backend)
 
-    def _route_one(self, fp: int, h_split: int, h_shard: int) -> str:
+    def _route_one(self, fp: int, h_split: int, h_shard: int,
+                   dup: bool | None = None) -> str:
         c = self.cfg
         if c.dedup:
-            dup = fp in self.seen_fingerprints
-            if not dup:
-                self.seen_fingerprints.add(fp)
+            if dup is None:  # local exact-set authority
+                dup = fp in self.seen_fingerprints
+                if not dup:
+                    self.seen_fingerprints.add(fp)
             if dup:
                 self.stats["dup"] += 1
                 return "dup"
@@ -102,20 +112,32 @@ class HashPipeline:
         """Route one document: 'train' | 'eval' | 'dup' | 'other_shard'."""
         self.stats["docs"] += 1
         h = self._route_hashes([np.atleast_1d(tokens)], backend="host")[0]
-        return self._route_one(int(h[0]), int(h[1]) >> 32, int(h[2]) >> 32)
+        dup = None
+        if self.admission is not None and self.cfg.dedup:
+            dup = not bool(self.admission.admit_batch(
+                [np.atleast_1d(tokens)])[0])
+        return self._route_one(int(h[0]), int(h[1]) >> 32, int(h[2]) >> 32,
+                               dup=dup)
 
     def admit_batch(self, docs) -> list[str]:
         """Route a batch of documents with ONE fused 3-hash launch.
 
         Bit-identical to per-document `admit` (duplicates within the batch
-        are caught in arrival order); stats update as if streamed.
+        are caught in arrival order); stats update as if streamed. With an
+        admission service attached, the whole batch's dedup verdicts come
+        from one `AdmissionService.admit_batch` call (grouped per shard).
         """
         if len(docs) == 0:
             return []
         hashes = self._route_hashes(list(docs))
         self.stats["docs"] += len(docs)
-        return [self._route_one(int(h[0]), int(h[1]) >> 32, int(h[2]) >> 32)
-                for h in hashes]
+        dups: list[bool | None] = [None] * len(docs)
+        if self.admission is not None and self.cfg.dedup:
+            dups = [not bool(ok)
+                    for ok in self.admission.admit_batch(list(docs))]
+        return [self._route_one(int(h[0]), int(h[1]) >> 32, int(h[2]) >> 32,
+                                dup=d)
+                for h, d in zip(hashes, dups)]
 
     def epoch_order(self, doc_hashes: np.ndarray, epoch: int) -> np.ndarray:
         """Reproducible global shuffle: argsort of salted re-hash."""

@@ -11,6 +11,8 @@ device (m1 at column 0, positional keys after it). Two call surfaces:
   batch; ``backend="host"`` runs the numpy twin instead.
 - ``hasher.stream()/.update()/.digest()`` -- incremental two-level
   fingerprints of long token streams (streaming.py).
+- ``hasher.sharded(mesh)`` -- the same hashes with the rows split over a
+  mesh's shards (distributed.py).
 
 Tokens enter as int32 tensors holding u32 bits (uint32 tensors and numpy
 arrays are converted). Hash values leave as int64 tensors holding u32
@@ -28,8 +30,6 @@ from ..kernels import ops as kops
 from ..kernels.autotune import pow2_at_least
 from . import streaming
 from .spec import FAMILIES, HashSpec
-
-_NOT_PORTED = "not ported yet: sharded hashing is ROADMAP Queue 1 item 8"
 
 
 def _even(n: int) -> int:
@@ -280,10 +280,16 @@ class Hasher:
         hi, lo = self.digest(state).tolist()
         return (hi << 32) | lo
 
-    # -- not in this slice ---------------------------------------------------
+    # -- scale-out ------------------------------------------------------------
 
-    def sharded(self, *args, **kwargs):
-        raise NotImplementedError(f"Hasher.sharded: {_NOT_PORTED}")
+    def sharded(self, mesh=None, axis: str = "data"):
+        """Scale this Hasher out over a mesh data axis: a `ShardedHasher`
+        (hash.distributed) partitioning every batch over `axis`, with
+        results equal to this Hasher's. `mesh=None` is every visible card
+        (or this Hasher's device when it is not a card)."""
+        from .distributed import ShardedHasher
+
+        return ShardedHasher(self, mesh, axis)
 
     def __repr__(self):
         return (f"Hasher({self.spec}, device={self.device}, "

@@ -30,8 +30,9 @@ digests where they lie (a handful a level), the leaves one launch of the
 engine kernel; only the root is read back. Unlike the reference there is
 no pow2 leaf bucketing (no jit cache to bound): a host-known length folds
 over exactly its leaves. `digest_tokens` takes a 0-d tensor `n_tokens` and
-masks past it without a host sync. `mesh=` (the sharded leaf launch) waits
-for `hash/distributed.py`.
+masks past it without a host sync. With `mesh=` the leaf launch shards over
+the mesh data axis (`ShardedHasher`: one launch a shard); digests do not
+depend on the mesh.
 """
 from __future__ import annotations
 
@@ -40,10 +41,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.device import as_tokens, resolve_device
+from ..core.device import as_tokens
 from ..core.keys import KeyBuffer
 from ..core.limbs import MASK32, hi32, lo32
 from ..core.pytree import flatten_with_paths
+from ..parallel.sharding import home_device
 from .hasher import Hasher
 from .spec import DEFAULT_SEED, FAMILY_NAMES, HashSpec
 
@@ -57,7 +59,6 @@ FOLD_WORDS = 5
 #: 2^63 leaves folds in 63 levels)
 _LEVELS = 65
 _MASK64 = (1 << 64) - 1
-_NOT_PORTED = "not ported yet: sharded hashing is ROADMAP Queue 1 item 8"
 
 
 def fold_seed(stream0_seed: int) -> int:
@@ -120,14 +121,19 @@ class TreeHasher:
         ``fingerprint_array(arr)`` -> int (one read of the root).
       - ``stream()`` -- incremental `TreeStream` (split-invariant).
       - ``digest_host(tokens)`` -- numpy twin, bit-identical.
+
+    With ``mesh=`` the leaf launch shards over the mesh data axis `axis`;
+    the device (default: the mesh's first) holds the keys, the fold and
+    the gathered leaf digests.
     """
 
-    def __init__(self, spec: TreeSpec = TreeSpec(), *, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"TreeHasher(mesh=): {_NOT_PORTED}")
+    def __init__(self, spec: TreeSpec = TreeSpec(), *, device=None, mesh=None,
+                 axis: str = "data"):
         self.spec = spec
         self.hasher = Hasher.from_spec(spec.leaf_spec(), max_len=spec.leaf_words,
-                                       device=device)
+                                       device=home_device(mesh, device))
+        self.sharded = (self.hasher.sharded(mesh, axis)
+                        if mesh is not None else None)
         self._fold = KeyBuffer(seed=fold_seed(self.hasher.spec.stream_seeds()[0]),
                                initial=FOLD_WORDS * 8)
         words = self._fold.u64(FOLD_WORDS * _LEVELS).reshape(_LEVELS, FOLD_WORDS)
@@ -150,8 +156,9 @@ class TreeHasher:
 
     def _leaf_digests(self, rows: torch.Tensor) -> torch.Tensor:
         """(L, leaf_words) int32 rows -> (L,) int64 u64 leaf digests: one
-        fused engine launch (hi = out[:, 0, 0], lo = out[:, 0, 1])."""
-        out = self.hasher(rows)
+        fused engine launch, or one a shard with a mesh (hi = out[:, 0, 0],
+        lo = out[:, 0, 1])."""
+        out = self.sharded(rows) if self.sharded is not None else self.hasher(rows)
         return (out[:, 0, 0] << 32) | out[:, 0, 1]
 
     def _fold_impl(self, nodes: torch.Tensor, t, tag) -> torch.Tensor:
@@ -332,7 +339,8 @@ class TreeHasher:
         return self._fold_host(digs, n if tag is None else tag)
 
     def __repr__(self):
-        return f"TreeHasher({self.spec}, device={self.device})"
+        mesh = "" if self.sharded is None else f", shards={self.sharded.n_shards}"
+        return f"TreeHasher({self.spec}, device={self.device}{mesh})"
 
 
 class TreeStream:
@@ -415,14 +423,13 @@ _DEFAULT: dict = {}
 
 def default_tree_hasher(spec: TreeSpec = TreeSpec(), *, device=None,
                         mesh=None) -> TreeHasher:
-    """Process-cached TreeHasher for a spec and device (a pure function of
-    the spec, so the cache changes cost, never values); at most 16."""
-    if mesh is not None:
-        raise NotImplementedError(f"default_tree_hasher(mesh=): {_NOT_PORTED}")
-    key = (spec, resolve_device(device))
+    """Process-cached TreeHasher for a spec, device and mesh (a pure
+    function of the spec, so the cache changes cost, never values); at
+    most 16."""
+    key = (spec, home_device(mesh, device), mesh)
     th = _DEFAULT.get(key)
     if th is None:
-        th = _DEFAULT[key] = TreeHasher(spec, device=key[1])
+        th = _DEFAULT[key] = TreeHasher(spec, device=key[1], mesh=mesh)
         while len(_DEFAULT) > 16:
             _DEFAULT.pop(next(iter(_DEFAULT)))
     return th
@@ -459,10 +466,10 @@ def fingerprint_pytree(tree, hasher: TreeHasher | None = None, *, device=None,
                        mesh=None) -> PytreeFingerprint:
     """Flatten (`core.pytree`) -> per-leaf-array tree digests of the raw
     bytes (`fingerprint_array`: one leaf launch per array, a tensor hashed
-    where it lies) -> root digest over (path, digest) pairs."""
-    if mesh is not None:
-        raise NotImplementedError(f"fingerprint_pytree(mesh=): {_NOT_PORTED}")
-    th = hasher if hasher is not None else default_tree_hasher(device=device)
+    where it lies) -> root digest over (path, digest) pairs. `mesh=`
+    shards each leaf launch (see `TreeHasher`)."""
+    th = (hasher if hasher is not None
+          else default_tree_hasher(device=device, mesh=mesh))
     leaves = tuple((path, th.fingerprint_array(leaf))
                    for path, leaf in flatten_with_paths(tree))
     return PytreeFingerprint(root=root_of_leaf_fingerprints(leaves, th),

@@ -44,3 +44,32 @@ def engine_case(seed: int, B: int, N: int, K: int, ragged_rows: bool):
     else:
         lens = np.full(B, -(N + 1), np.int32)
     return toks, kh, kl, lens
+
+
+def cpu_mesh(D: int):
+    """The port's mesh of D logical shards of the CPU."""
+    from repro_torch.parallel import data_mesh
+
+    return data_mesh(device="cpu", n_shards=D)
+
+
+def bloom_bytes(dsb) -> np.ndarray:
+    """A port or reference `DeviceShardedBloom`'s global bits as (m,) uint8."""
+    return np.asarray(dsb.bits)[:dsb.m].astype(np.uint8)
+
+
+def load_bloom_bytes(dsb, global_bits) -> None:
+    """Start a port `DeviceShardedBloom` from a global (m,) 0/1 byte array --
+    the reference filter's `np.asarray(bits)[:m]` -- split over its shards."""
+    bits = np.zeros(dsb.m_local * dsb.n_shards, np.uint8)
+    bits[:dsb.m] = np.asarray(global_bits, np.uint8)[:dsb.m]
+    for d, shard in enumerate(dsb._bits):
+        shard[:dsb.m_local] = torch.from_numpy(
+            bits[d * dsb.m_local:(d + 1) * dsb.m_local])
+
+
+def words_to_bytes(words: np.ndarray, m: int) -> np.ndarray:
+    """A host `BloomFilter`'s u64 words as (m,) 0/1 bytes (bit i of the
+    filter is bit i % 64 of word i // 64)."""
+    return np.unpackbits(np.asarray(words, np.uint64).view(np.uint8),
+                         bitorder="little")[:m]

@@ -179,7 +179,7 @@ def test_restore_errors(tmp_path):
     with pytest.raises(KeyError):
         ck.restore(1, {"different": torch.zeros(3)})
     for kw in ({"mesh": object()}, {"fsdp_pods": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             ck.restore(1, _torch_state(), **kw)
     man_path = tmp_path / "step_1" / "manifest.json"
     man = json.loads(man_path.read_text())

@@ -360,3 +360,73 @@ def test_tree_stream_on_card_matches_cpu(cuda):
         assert mhk.launch_count() - before == flush
     assert s.digest_int() == sc.digest_int() == th.fingerprint(toks.to(cuda))
     assert s.digest_int() == tc.fingerprint(toks)
+
+
+def _sharded_bloom_run(mesh, transport, A, B):
+    from repro_torch.hash import DeviceShardedBloom
+
+    f = DeviceShardedBloom(n_items=5000, mesh=mesh, probe_transport=transport)
+    f.add_batch(A)
+    present = f.contains_batch(B)
+    admitted = f.check_and_add_batch(B)
+    return (present, admitted, f.words().cpu().numpy(), dict(f.stats),
+            f.bytes_moved)
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("kind", ["host", "all_gather", "routed", "overflow"])
+def test_device_sharded_bloom_on_card_matches_cpu(cuda, kind, D):
+    """DeviceShardedBloom over D logical shards of the card == the same
+    filter over D logical shards of the CPU: verdicts, words, overflow
+    stats and bytes moved."""
+    from repro_torch.hash import ProbeTransport
+    from repro_torch.parallel import data_mesh
+
+    g = rng(0xB10 + D)
+    A = ragged(g, 300, 64, min_len=1)
+    B = ragged(g, 200, 64, min_len=1) + A[:100] + A[:3]
+    transport = (ProbeTransport("routed", capacity_factor=0.5, capacity_slack=0)
+                 if kind == "overflow" else kind)
+    cpu, card = (_sharded_bloom_run(data_mesh(device=dev, n_shards=D),
+                                    transport, A, B) for dev in ("cpu", cuda))
+    for a, b in zip(cpu[:3], card[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert cpu[3:] == card[3:]
+    assert (card[3]["overflow_fallbacks"] > 0) == (kind == "overflow")
+
+
+@pytest.mark.parametrize("family", ["multilinear", "gf_multilinear_hm"])
+def test_sharded_hasher_on_card_matches_cpu(cuda, family):
+    from repro_torch.parallel import data_mesh
+
+    spec = HashSpec(family=family, n_hashes=5, out_bits=64, variable_length=True)
+    items = ragged(rng(0x5A), 301, 90)
+    want = Hasher.from_spec(spec, device="cpu").sharded(
+        data_mesh(device="cpu", n_shards=3)).hash_batch(items)
+    sh = Hasher.from_spec(spec, device=cuda).sharded(
+        data_mesh(device=cuda, n_shards=4))
+    counts = mhk.launch_count() + gfmh.launch_count()
+    np.testing.assert_array_equal(sh.hash_batch(items), want)
+    assert mhk.launch_count() + gfmh.launch_count() == counts + 4
+
+
+def test_device_sharded_bloom_launch_part_has_no_host_sync(cuda):
+    """After staging, a routed add and a routed verdict launch without one
+    host sync (torch.cuda.set_sync_debug_mode('error') raises on any)."""
+    from repro_torch.hash import DeviceShardedBloom
+    from repro_torch.parallel import data_mesh
+
+    docs = ragged(rng(0x5C), 512, 300, min_len=1)
+    for kind in ("routed", "all_gather"):
+        f = DeviceShardedBloom(n_items=10**5, probe_transport=kind,
+                               mesh=data_mesh(device=cuda, n_shards=4))
+        st = f._stage(docs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            f._add_staged(st)
+            out, _ = f._verdict_staged(st, insert=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out = out.cpu().numpy()
+        assert out[:st.B].all() and not out[st.Bp:].any()

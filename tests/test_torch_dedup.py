@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from _torch_port import ENGINE_FAMILIES, ragged, rng
+from _torch_port import ENGINE_FAMILIES, cpu_mesh, ragged, rng
 from repro.data import BloomFilter as JBloom
 from repro.data import ExactDedup as JExact
 from repro.data import HashPipeline as JPipe
@@ -87,9 +87,15 @@ def test_exact_dedup_matches_reference():
     long = [np.zeros(5000, np.uint32), docs[0], np.zeros(5000, np.uint32)]
     np.testing.assert_array_equal(t.add_documents(long), j.add_documents(long))
     assert t.seen == j.seen
-    for kw in ({"mesh": object()}, {"approx_items": 10}):
-        with pytest.raises(NotImplementedError):
-            TExact(device="cpu", **kw)
+    # mesh= and approx_items=, once refused: the same verdicts here
+    sharded = TExact(mesh=cpu_mesh(2))
+    np.testing.assert_array_equal(sharded.check_and_add_batch(items),
+                                  JExact().check_and_add_batch(items))
+    approx = TExact(device="cpu", approx_items=1000)
+    assert approx._bloom.n_shards == 1 and approx._bloom.k == 9
+    distinct = ragged(rng(10), 8, 20, min_len=1)
+    assert approx.check_and_add_batch(distinct).all()
+    assert not approx.check_and_add_batch(distinct).any()
 
 
 def test_pipeline_routes_match_reference():
@@ -107,9 +113,13 @@ def test_pipeline_routes_match_reference():
     for a, b in zip(tp.pack(iter(docs)), jp.pack(iter(docs))):
         for key in ("tokens", "labels", "mask"):
             np.testing.assert_array_equal(a[key], b[key])
-    for kw in ({"mesh": object()}, {"admission": object()}):
-        with pytest.raises(NotImplementedError):
-            TPipe(TCfg(**cfg), device="cpu", **kw)
+    # mesh= and admission=, once refused: the same routes here
+    from repro_torch.hash import AdmissionService
+
+    svc = AdmissionService.over_bloom_shards(2, 4096, device="cpu")
+    for kw in ({"mesh": cpu_mesh(2)}, {"admission": svc}):
+        assert TPipe(TCfg(**cfg), device="cpu", **kw).admit_batch(docs[:20]) == \
+            JPipe(JCfg(**cfg)).admit_batch(docs[:20])
 
 
 def test_synthetic_corpus_matches_reference():

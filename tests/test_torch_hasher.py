@@ -122,9 +122,17 @@ def test_capacity_error_and_ensure():
 
 
 def test_not_ported_surfaces_raise():
-    th, _ = _pair("multilinear")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        th.sharded()
+    """`Hasher.sharded`, the last surface this file once found refused, now
+    returns a `ShardedHasher` whose hashes are the Hasher's (the full grid
+    is in test_torch_distributed.py)."""
+    from _torch_port import cpu_mesh
+    from repro_torch.hash import ShardedHasher
+
+    th, jh = _pair("multilinear")
+    sh = th.sharded(cpu_mesh(3))
+    assert isinstance(sh, ShardedHasher) and sh.hasher is th
+    toks = u32(G, (5, 11))
+    _eq(sh(toks), jh(toks))
 
 
 def test_default_device_is_cuda_and_never_cpu():

@@ -164,11 +164,18 @@ def test_default_tree_hasher_cache_and_not_ported():
     for lw in range(1, 20):
         ttree.default_tree_hasher(ttree.TreeSpec(leaf_words=lw), device="cpu")
     assert len(ttree._DEFAULT) <= 16
-    for fn in (lambda: ttree.TreeHasher(mesh=object()),
-               lambda: ttree.stream_tree(mesh=object()),
-               lambda: ttree.fingerprint_pytree({}, mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            fn()
+    # the mesh routes, once refused, are cached per mesh and agree
+    from _torch_port import cpu_mesh
+
+    m = ttree.default_tree_hasher(mesh=cpu_mesh(2))
+    assert m is ttree.default_tree_hasher(mesh=cpu_mesh(2)) and m is not a
+    assert m.sharded.n_shards == 2 and m.device.type == "cpu"
+    toks = np.arange(700, dtype=np.uint32)
+    assert ttree.stream_tree(mesh=cpu_mesh(2)).update(toks).digest_int() \
+        == a.fingerprint(toks)
+    tree = {"x": np.arange(6, dtype=np.int32)}
+    assert ttree.fingerprint_pytree(tree, mesh=cpu_mesh(2)) == \
+        ttree.fingerprint_pytree(tree, device="cpu")
     with pytest.raises(ValueError):
         _th(leaf_words=8)._fold_impl(torch.zeros(1, dtype=torch.int64), 1, -1)
 
