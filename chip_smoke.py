@@ -127,8 +127,28 @@ document; and again before phase 8, whose every call is checked for its
 exact engine launches too: D per sharded call (2D for a routed call that
 falls back), one per unsharded call, and for a service call one for the
 router, one for the L1 check, one L1 add a shard group and D per shard
-filter call. Any failed check exits non-zero. The last line is the JSON
-device record.
+filter call; and again before phase 9, whose probe-path calls are each
+checked for their exact engine launches (one per `probe_indices` call, D
+per sharded call) and whose battery must make exactly its probe path's
+launches (the adapters and metrics are PyTorch operations). Any failed
+check exits non-zero. The last line is the JSON device record.
+
+9. the quality battery (`quality`, `core.baselines`, `core.gf`), a path of
+   its own after phase 8, at the committed report's sizes (seed 0x5AC1,
+   N 4, 2^21 keys, 2^16 avalanche keys):
+   a. every battery family and control on 4,096 rows of keygen's Threefry
+      streams: streams and adapter outputs on the card == on the CPU;
+      `core.baselines` (rabin_karp, sax, fnv1a, nh, Zobrist) and the
+      whole-string `core.gf` hashes on the card == Python-int oracles on a
+      64-row subsample;
+   b. the battery's probe path (`Hasher.probe_indices`, K 2, 64-bit,
+      fixed length, B 2^21 x N 4, m in {3, 4097, 2^32-1}) for multilinear
+      and gf_multilinear: each call == its plain version, one launch a
+      call; the `ShardedHasher` twin == it, D launches a call;
+   c. `run_battery` on the card: `compare_reports(QUALITY.json, report,
+      verdicts_only=False) == []`, both controls flagged, every shipped
+      family passing; seconds per family and in all, beside the card's name
+      and power limit (the report is written beside chip_smoke.json).
 """
 from __future__ import annotations
 
@@ -137,6 +157,7 @@ import math
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -222,6 +243,8 @@ class Port:
         from repro_torch.kernels import multihash as mhk
         from repro_torch.kernels import multilinear as mlk
         from repro_torch.parallel import data_mesh
+        from repro_torch import quality
+        from repro_torch.core import baselines
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
         self.gf, self.keys, self.streaming = gf, keys, streaming
@@ -238,6 +261,7 @@ class Port:
         self.ProbeTransport, self.AdmissionService = ProbeTransport, AdmissionService
         self.FaultEvent, self.FaultPlan = FaultEvent, FaultPlan
         self.FaultyTransport = FaultyTransport
+        self.quality, self.baselines = quality, baselines
         self.tally = 0  # engine launches `launched` has checked
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
@@ -379,16 +403,32 @@ def bound(kernel: str, B: int, N: int, W: int, K: int,
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def design_floor(B: int, N: int, W: int, K: int, lens) -> tuple[float, str]:
+def probe_bound(kernel: str, B: int, N: int, K: int, lens) -> tuple[float, str]:
+    """Least time (ms) of a fixed-length `Hasher.probe_indices` call: the
+    bytes the probe function needs -- the live tokens of `live_work` and the
+    K (N+1) keys (8 bytes, 4 for the carry-less families) read once, and K
+    u32 residues a row (each < m <= 2^32 - 1) written once; no length codes
+    at fixed length -- over the memory rate, and for the integer kernel the
+    operations of `bound`."""
+    loaded, hashed = live_work(lens, N)
+    gf = kernel == "gf_multihash"
+    nbytes = loaded * 4 + K * (N + 1) * (4 if gf else 8) + B * K * 4
+    return _least_ms(nbytes, 0 if gf else 2 * hashed * K)
+
+
+def design_floor(B: int, N: int, W: int, K: int, lens,
+                 bytes_ms: float | None = None) -> tuple[float, str]:
     """Least time (ms) of the carry-less engine's plain families in their
     own design, the 4-bit window table (csrc/gf_multihash.cu): the largest
-    of the bytes bound, its integer operations (GF_TABLE_OPS a product,
-    GF_NIBBLE_OPS a column) over the instruction rate ("operations") and its
-    table reads (GF_TABLE_BYTES a product) over the shared-memory rate
-    ("shared memory"). Not a bound on the function: another product form
-    could go below it."""
+    of the bytes bound (`bound`'s, or `bytes_ms` where given), its integer
+    operations (GF_TABLE_OPS a product, GF_NIBBLE_OPS a column) over the
+    instruction rate ("operations") and its table reads (GF_TABLE_BYTES a
+    product) over the shared-memory rate ("shared memory"). Not a bound on
+    the function: another product form could go below it."""
     hashed = live_work(lens, N)[1]
-    t = {"bytes": bound("gf_multihash", B, N, W, K, lens)[0] / 1e3,
+    if bytes_ms is None:
+        bytes_ms = bound("gf_multihash", B, N, W, K, lens)[0]
+    t = {"bytes": bytes_ms / 1e3,
          "operations": (GF_TABLE_OPS * K + GF_NIBBLE_OPS) * hashed / INT32_OPS_PER_S,
          "shared memory": GF_TABLE_BYTES * K * hashed / SMEM_BYTES_PER_S}
     by = max(t, key=t.get)
@@ -1644,6 +1684,208 @@ def lifted_routes(port: Port, device, batches, tree_root: int, svc_a, svc_b,
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 9: the quality battery
+# --------------------------------------------------------------------------
+
+def _rk_ref(row) -> int:
+    h = 0
+    for t in row:
+        h = (h * 31 + int(t)) & 0xFFFFFFFF
+    return h
+
+
+def _sax_ref(row) -> int:
+    h = 0
+    for t in row:
+        h ^= ((h << 5) + (h >> 2) + int(t)) & 0xFFFFFFFF
+        h &= 0xFFFFFFFF
+    return h
+
+
+def _fnv_ref(row) -> int:
+    h = 2166136261
+    for t in row:
+        for shift in (0, 8, 16, 24):
+            h = ((h ^ ((int(t) >> shift) & 0xFF)) * 16777619) & 0xFFFFFFFF
+    return h
+
+
+def _nh_ref(row, keys) -> int:
+    acc = 0
+    for i in range(0, len(row), 2):
+        acc += (((int(keys[i]) + int(row[i])) & 0xFFFFFFFF)
+                * ((int(keys[i + 1]) + int(row[i + 1])) & 0xFFFFFFFF))
+    return acc & ((1 << 64) - 1)
+
+
+def battery_adapters(port: Port, device, rows: int = 4096, n_sub: int = 64):
+    """9a: every battery family and control on `rows` rows of keygen's
+    streams, the card's result `torch.equal` the CPU's (the streams too);
+    then `core.baselines` and the whole-string `core.gf` hashes on the card
+    against Python-int oracles on an `n_sub`-row subsample."""
+    torch, q = port.torch, port.quality
+    keygen, runner = q.keygen, q.runner
+    N = runner.N_TOKENS
+    for fam in q.families.battery_families():
+        key = keygen.battery_key(keygen.QUALITY_SEED, zlib.crc32(fam.name.encode()))
+        kw = fam.key_words(N)
+        ins = {dev: (keygen.token_batch(key, rows, N, dev),
+                     *keygen.key_planes(key, rows, kw, dev))
+               for dev in (device, "cpu")}
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(ins[device], ins["cpu"])),
+              f"9a {fam.name}: keygen streams on the card != the CPU's")
+        got, want = fam.fn(*ins[device]), fam.fn(*ins["cpu"])
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"9a {fam.name}: adapter on the card != on the CPU")
+    g = np.random.Generator(np.random.Philox(key=np.uint64(SEED)))
+    toks = g.integers(0, 2**32, (rows, 16), dtype=np.uint64).astype(np.uint32)
+    keys = g.integers(0, 2**32, 17, dtype=np.uint64).astype(np.uint32)
+    t = torch.from_numpy(toks.astype(np.int64)).to(device)
+    b = port.baselines
+    sub = toks[:n_sub]
+    for name, fn, ref in (("rabin_karp", b.rabin_karp, _rk_ref),
+                          ("sax", b.sax, _sax_ref), ("fnv1a", b.fnv1a, _fnv_ref)):
+        out = fn(t)
+        check(out.device == t.device and out[:n_sub].tolist() == [ref(r) for r in sub],
+              f"9a baselines.{name} on the card != its Python-int oracle")
+    hi, lo = b.nh(t, keys[:16])
+    nh = [_nh_ref(r, keys) for r in sub]
+    check(hi[:n_sub].tolist() == [v >> 32 for v in nh]
+          and lo[:n_sub].tolist() == [v & 0xFFFFFFFF for v in nh],
+          "9a baselines.nh on the card != its Python-int oracle")
+    z = b.Zobrist(16, 256, device=device)
+    ztoks = toks & 0xFF
+    table = z.table.cpu().numpy()
+    zref = np.bitwise_xor.reduce(table[np.arange(16), ztoks[:n_sub]], axis=1)
+    check(z(torch.from_numpy(ztoks.astype(np.int64)).to(device))[:n_sub].tolist()
+          == zref.tolist(), "9a baselines.Zobrist on the card != numpy gather")
+    gfm = port.gf
+    for name, fn, ref in (("gf_multilinear", gfm.gf_multilinear, gfm.gf_multilinear_ref),
+                          ("gf_multilinear_hm", gfm.gf_multilinear_hm,
+                           gfm.gf_multilinear_hm_ref)):
+        out = fn(t, keys)
+        check(out[:n_sub].tolist() == [ref(r, keys) for r in sub],
+              f"9a core.gf.{name} on the card != its Python-int oracle")
+    print(f"9a: {len(q.families.battery_families())} battery adapters on "
+          f"{rows} rows (card == CPU, keygen streams too); rabin_karp, sax, "
+          f"fnv1a, nh, Zobrist and core.gf's whole-string hashes on {rows} x 16 "
+          f"== Python-int oracles on {n_sub} rows")
+
+
+def probe_path_launches(port: Port, device, card: str):
+    """9b: the battery's probe path at the committed report's size (B 2^21 x
+    N 4, K 2, 64-bit surface, fixed length): each `probe_indices` call ==
+    its plain version, one launch a call, and D launches a call of its
+    `ShardedHasher` twins (== the unsharded output): the default mesh the
+    battery's own probe path uses (every visible card) and 4 logical shards
+    of the card, so rows really split. Returns the rows and a closure that
+    times them (run once the phase's launches are read)."""
+    torch, q = port.torch, port.quality
+    keygen, runner = q.keygen, q.runner
+    B, N = runner.FULL_KEYS, runner.N_TOKENS
+    toks = keygen.token_batch(keygen.battery_key(keygen.QUALITY_SEED, 7), B, N,
+                              device).to(torch.int32)
+    code = torch.full((B,), -(N + 1), dtype=torch.int32, device=device)
+    rows, calls = [], []
+    for family in runner.probe_path_families():
+        h = port.Hasher.from_spec(port.HashSpec(
+            family=family, n_hashes=2, out_bits=64, variable_length=False,
+            seed=keygen.QUALITY_SEED), max_len=N, device=device)
+        sh, sh4 = h.sharded(), h.sharded(mesh=logical(port, device, 4))
+        D, W = sh.n_shards, h._required_width(N)
+        for m in (*runner.MODULI_SMALL, runner.MODULUS_HUGE):
+            plan = port.limbs.ModPlan.for_modulus(m)
+            idx = launched(port, 1, lambda: h.probe_indices(toks, plan),
+                           f"9b {family} probe_indices(m={m})")
+            want = port.plain(family, toks, h.keys, code, mod_m=plan, width=W)[..., 0]
+            check(torch.equal(idx, want), f"9b {family} m={m}: probe_indices "
+                  "!= plain version")
+            err = int((idx - want).abs().max().item())
+            del want
+            idx_sh = launched(port, D, lambda: sh.probe_indices(toks, plan),
+                              f"9b {family} sharded probe_indices(m={m})")
+            check(torch.equal(idx_sh, idx), f"9b {family} m={m}: sharded "
+                  "probe_indices != unsharded")
+            del idx_sh
+            idx_sh = launched(port, 4, lambda: sh4.probe_indices(toks, plan),
+                              f"9b {family} 4-shard probe_indices(m={m})")
+            check(torch.equal(idx_sh, idx), f"9b {family} m={m}: probe_indices "
+                  "on 4 logical shards != unsharded")
+            del idx_sh
+            name, lens = port.kernel_of(family), np.full(B, -(N + 1))
+            b_ms, b_by = probe_bound(name, B, N, 2, lens)
+            row = {"kernel": name, "family": family,
+                   "shape": "battery-probe", "B": B, "N": N, "W": W, "K": 2,
+                   "mod_m": m, "shards": D, "mesh4_shards": 4,
+                   "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                   "engine_bytes_bound_ms": bound(name, B, N, W, 2, lens)[0],
+                   "card": card}
+            if name == "gf_multihash":
+                row["design_floor_ms"], row["design_floor_by"] = design_floor(
+                    B, N, W, 2, lens, bytes_ms=b_ms)
+            rows.append(row)
+            calls.append((row, lambda h=h, plan=plan: h.probe_indices(toks, plan),
+                          lambda f=family, h=h, plan=plan, W=W: port.plain(
+                              f, toks, h.keys, code, mod_m=plan, width=W)))
+    print(f"9b: probe_indices at B {B} x N {N} (K 2, m in "
+          f"{[*runner.MODULI_SMALL, runner.MODULUS_HUGE]}) == plain versions, "
+          f"one launch a call; the sharded twins (D = {D} and 4 logical "
+          f"shards) == it, D launches a call")
+
+    def measure():
+        for row, fn, plain in calls:
+            row["ms"] = timed(port, fn, 20)
+            row["graph_ms"] = timed_graph(port, fn, 20)
+            row["plain_ms"] = timed(port, plain, 2)
+            print(json.dumps(row))
+    return rows, measure
+
+
+def full_battery(port: Port, device, card: str) -> tuple[dict, dict]:
+    """9c: `run_battery` at the committed report's sizes on the card; the
+    report must reproduce QUALITY.json (every verdict, every statistic
+    within compare_reports' rtol), with both controls flagged and every
+    shipped family passing. Times each family."""
+    torch, runner = port.torch, port.quality.runner
+    committed = json.loads((ROOT / "QUALITY.json").read_text())
+    marks = [time.perf_counter()]
+
+    def progress(line: str) -> None:
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        print(f"  {marks[-1] - marks[-2]:.3f} s {line}", flush=True)
+
+    report = runner.run_battery(committed["n_keys"], committed["avalanche_keys"],
+                                committed["seed"], progress=progress,
+                                device=device)
+    seconds = marks[-1] - marks[0]
+    names = [*report["families"], "probe_path"]
+    per = {n: marks[i + 1] - marks[i] for i, n in enumerate(names)}
+    problems = runner.compare_reports(committed, report, verdicts_only=False)
+    for p in problems:
+        print(f"  DRIFT: {p}")
+    check(problems == [], f"9c: the battery drifted from QUALITY.json "
+          f"({len(problems)} problem(s))")
+    check(report["self_validated"] and report["all_shipped_pass"],
+          "9c: a control passed or a shipped family failed")
+    bic = {n: (next(m["value"] for m in f["metrics"] if m["name"] == "bic_max_corr"),
+               next(m["value"] for m in committed["families"][n]["metrics"]
+                    if m["name"] == "bic_max_corr"))
+           for n, f in report["families"].items()}
+    exact = sum(m == c for n, f in report["families"].items()
+                for m, c in zip(f["metrics"], committed["families"][n]["metrics"]))
+    n_metrics = sum(len(f["metrics"]) for f in report["families"].values())
+    print(f"9c: run_battery(n_keys={committed['n_keys']}, avalanche_keys="
+          f"{committed['avalanche_keys']}, seed={committed['seed']:#x}) on the "
+          f"card reproduces QUALITY.json (compare_reports == []); "
+          f"{exact}/{n_metrics} family metrics identical to the committed "
+          f"records; {seconds:.3f} s; card {card}")
+    return {"seconds": seconds, "seconds_per_family": per,
+            "metrics_identical": exact, "metrics": n_metrics,
+            "bic_max_corr_vs_committed": bic, "card": card}, report
+
+
 def main() -> int:
     try:
         import torch
@@ -1764,8 +2006,38 @@ def main() -> int:
         with phase("phase 8 measurements"):
             measure_8a()
             measure_8b()
+        # phase 9 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        port.tally = 0
+        with phase("phase 9a: battery adapters, baselines and core.gf"):
+            battery_adapters(port, device)
+        with phase("phase 9b: the probe path at the battery's size"):
+            probe_rows, measure_9b = probe_path_launches(port, device, card)
+        probe_tally = port.tally
+        # the battery's own probe path: one launch a call, D a sharded call
+        port.tally += sum(1 + r["shards"] for r in probe_rows)
+        with phase("phase 9c: the full battery"):
+            battery, quality_report = full_battery(port, device, card)
+        battery_launches = port.counts()
+        print(f"phase 9 launches: {battery_launches} (9b checked call by call: "
+              f"{probe_tally}; 9c's probe path: {port.tally - probe_tally})")
+        check(battery_launches["multihash"] > 0 and battery_launches["gf_multihash"] > 0
+              and battery_launches["multihash"] + battery_launches["gf_multihash"]
+              == port.tally
+              and not battery_launches["multilinear"] + battery_launches["gf_multilinear"],
+              f"phase 9 launches {battery_launches} != {port.tally} engine launches")
+        with phase("phase 9 measurements"):
+            measure_9b()
+        rows += probe_rows
         for rec in kernels:
             rec["phase8_launches"] = shard_launches[rec["name"]]
+            rec["phase9_launches"] = battery_launches[rec["name"]]
+            probe = [r for r in probe_rows if r["kernel"] == rec["name"]]
+            if probe:
+                rec["battery_probe"] = {k: max(r[k] for r in probe)
+                                        for k in ("ms", "graph_ms", "plain_ms",
+                                                  "bound_ms", "design_floor_ms",
+                                                  "max_abs_err") if k in probe[0]}
             leaf = {"multihash": tree["multilinear"],
                     "gf_multihash": tree["gf_multilinear"]}.get(rec["name"])
             if leaf is not None:
@@ -1781,7 +2053,11 @@ def main() -> int:
              "tree_launches": tree_launches,
              "sharded": {"pure": shard_pure, "bloom": shard_bloom,
                          "service": shard_svc, "lifted": lifted,
-                         "launches": shard_launches}}, indent=1))
+                         "launches": shard_launches},
+             "quality": {"battery": battery, "launches": battery_launches}},
+            indent=1))
+        (out_dir / "quality_report.json").write_text(json.dumps(quality_report,
+                                                                indent=1))
         print(f"total {time.perf_counter() - t_start:.3f} s wall; card {card}")
         print(json.dumps({"kernels": kernels}))
         print(card)

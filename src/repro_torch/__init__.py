@@ -5,6 +5,6 @@ the reference the port is held against). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; the fused K-hash engine is two
 hand-written CUDA kernels (`kernels/csrc/`) built with nvcc on first use.
 """
-from . import checkpoint, core, data, hash, kernels, parallel  # noqa: F401
+from . import checkpoint, core, data, hash, kernels, parallel, quality  # noqa: F401
 from .data import BloomFilter, ExactDedup, HashPipeline, PipelineConfig  # noqa: F401
 from .hash import Hasher, HashSpec  # noqa: F401

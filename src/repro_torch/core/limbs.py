@@ -13,7 +13,10 @@ the port carries every 32-bit lane and every 64-bit accumulator in int64:
 
 The reference does this with (hi, lo) uint32 limb pairs and a 16-bit digit
 trick because the TPU has no 64-bit lanes (`repro.core.limbs`); the CUDA
-kernels use native `uint64_t` and a host reciprocal instead.
+kernels use native `uint64_t` and a host reciprocal instead. So the
+reference's `mul32_full`, `add64`, `add64_u32`, `mul64_low` and `mul64_u32`
+are plain int64 `*` and `+` here (a 32x32 product's u64 bits are `a * b`),
+and the Lemire reduction `(h * nb) >> 32` is `mulhi32`.
 """
 from __future__ import annotations
 

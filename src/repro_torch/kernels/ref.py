@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import gf as gf_core
+from ..core.gf import xor_reduce
 from ..core.limbs import MASK32, as_plan, hi32, lo32, mod_u64
 
 INT_FAMILIES = ("multilinear", "multilinear_2x2", "multilinear_hm")
@@ -101,18 +102,6 @@ def mask_lengths(tokens: torch.Tensor, lens: torch.Tensor, width: int):
     end = lm + is_var.to(torch.int64)
     kend = end + (end & 1)
     return tok_eff, col < kend
-
-
-def xor_reduce(x: torch.Tensor) -> torch.Tensor:
-    """(B, W) int64 -> (B,) xor of each row (pairwise folds; xor is exact
-    in any order)."""
-    if x.shape[1] == 0:
-        return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    while x.shape[1] > 1:
-        if x.shape[1] & 1:
-            x = F.pad(x, (0, 1))
-        x = x[:, 0::2] ^ x[:, 1::2]
-    return x[:, 0]
 
 
 def multihash_ref(tokens, keys, lens, *, family="multilinear", mod_m=None,
