@@ -130,7 +130,10 @@ router, one for the L1 check, one L1 add a shard group and D per shard
 filter call; and again before phase 9, whose probe-path calls are each
 checked for their exact engine launches (one per `probe_indices` call, D
 per sharded call) and whose battery must make exactly its probe path's
-launches (the adapters and metrics are PyTorch operations). Any failed
+launches (the adapters and metrics are PyTorch operations); and again
+before phase 10, whose serving runs must make exactly their predicted
+`multihash` launches and no other kernel's (the models are PyTorch
+operations). Any failed
 check exits non-zero. The last line is the JSON device record.
 
 9. the quality battery (`quality`, `core.baselines`, `core.gf`), a path of
@@ -149,9 +152,38 @@ check exits non-zero. The last line is the JSON device record.
       verdicts_only=False) == []`, both controls flagged, every shipped
       family passing; seconds per family and in all, beside the card's name
       and power limit (the report is written beside chip_smoke.json).
+
+10. serving the dense-attention models (`configs`, `models`, `serve`), a
+    path of its own after phase 9 (counts set to 0 again; every
+    `submit_all` checked for its exact engine launches):
+    a. parity at full width: `mistral_nemo_12b` with n_layers cut to 2
+       (d_model 5,120, d_ff 14,336, vocab 131,072), float32 with TF32 off,
+       one seeded set of weights on the card and its copy on the CPU:
+       prefill logits of a (2, 33) batch, the next decode step's logits and
+       `lm_loss` on the card == on the CPU, and prefill(32) + decode(1) ==
+       the full forward's last logits on the card, each within rtol = atol =
+       2e-3;
+    b. `mistral_nemo_12b` as published (40 layers, bf16, 12.25e9 parameters
+       drawn on the card) served by `ServeEngine(n_slots=8, max_seq=2048,
+       tree_prompt_words=512)` over 32 requests (28 prompts of 64-1,500
+       tokens, 4 exact repeats, 32 new tokens each), without admission and
+       with `admission_items=10**6`: every admitted request done with its 32
+       tokens, 4 prefix hits without admission and 4 rejections with it,
+       prompts of >= 512 tokens on the tree route, every prompt key the
+       engine computed == its host twin (the tree's `digest_host`; the
+       prefix hasher's numpy path for the short prompts' launch), with
+       admission the verdicts and both filters' final words == host
+       `BloomFilter`s (hashing on the CPU) given the same waves, the engine
+       launches equal to the prediction (`serve_launches`), and the first
+       wave's greedy tokens == a manual prefill + decode_step loop. Times: prefill
+       by prompt length (64, 512, 1,500), a decode tick at batch 8, tokens/s
+       and requests/s of each run, peak memory, the device idle share of a
+       decode tick (torch.profiler), and kernel 1 at the prefix-key shape
+       beside its bound and its plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -244,7 +276,10 @@ class Port:
         from repro_torch.kernels import multilinear as mlk
         from repro_torch.parallel import data_mesh
         from repro_torch import quality
+        from repro_torch.configs import get_config
         from repro_torch.core import baselines
+        from repro_torch.models import build, transformer
+        from repro_torch.serve import Request, ServeEngine
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
         self.gf, self.keys, self.streaming = gf, keys, streaming
@@ -262,6 +297,9 @@ class Port:
         self.FaultEvent, self.FaultPlan = FaultEvent, FaultPlan
         self.FaultyTransport = FaultyTransport
         self.quality, self.baselines = quality, baselines
+        self.get_config, self.build_model = get_config, build
+        self.transformer, self.Request, self.ServeEngine = (transformer, Request,
+                                                            ServeEngine)
         self.tally = 0  # engine launches `launched` has checked
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
@@ -907,41 +945,31 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
     return records, rows
 
 
-def device_ops_per_call(port: Port, fn):
-    """Operations (kernels, copies) one call of fn() puts on the card,
-    counted by torch.profiler; None when the profiler sees none here."""
+def device_busy(port: Port, fn, warm: bool = False, top: int = 8):
+    """fn() once (after one warm call when `warm`) under torch.profiler:
+    {wall_ms (profiler on), ops and names (the card's operations), kernel_ms
+    and copy_ms (device times summed: one stream, so they do not overlap),
+    idle_share of the wall, top_ms (the `top` names by device ms)}; None
+    when the profiler sees nothing here. Only the profiler's own start and
+    stop are guarded: a failure of fn() fails the run."""
     torch = port.torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        prof.start()
     except Exception as exc:  # the profiler itself, not the code under test
         print(f"torch.profiler failed on the card: {exc!r}")
-        return None, []
-    return (len(names) or None), names
-
-
-def device_busy(port: Port, fn):
-    """fn() once under torch.profiler: (wall ms, device kernel ms, device
-    copy and fill ms), the device times summed over the card's operations
-    (one stream, so they do not overlap); None when the profiler sees
-    nothing here."""
-    torch = port.torch
-    from torch.profiler import ProfilerActivity, profile
-
+        return None
+    t0 = time.perf_counter()
+    fn()
     torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
+        prof.stop()
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     except Exception as exc:  # the profiler itself, not the code under test
@@ -949,10 +977,20 @@ def device_busy(port: Port, fn):
         return None
     if not dev:
         return None
-    copies = sum(e.time_range.elapsed_us() for e in dev
-                 if e.name.startswith(("Memcpy", "Memset")))
-    kernels = sum(e.time_range.elapsed_us() for e in dev) - copies
-    return wall, kernels / 1e3, copies / 1e3
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
+    copies = sum(v for k, v in by_name.items() if k.startswith(("Memcpy", "Memset")))
+    busy = sum(by_name.values())
+    return {"wall_ms": wall, "ops": len(dev), "names": [e.name for e in dev],
+            "kernel_ms": busy - copies, "copy_ms": copies,
+            "idle_share": 1 - busy / wall,
+            "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def ops_of(prof) -> tuple:
+    """(operations, names) of a `device_busy` record; (None, []) without one."""
+    return (prof["ops"], prof["names"]) if prof else (None, [])
 
 
 def measure_single(port: Port, device, shapes: dict, launches: dict,
@@ -1024,7 +1062,7 @@ def measure_single(port: Port, device, shapes: dict, launches: dict,
                "N": toks.shape[1]}
         if family.startswith("gf_"):
             fn = lambda: port.ops.gf_hash(toks, lo, family=family)  # noqa: E731
-            n_ops, names = device_ops_per_call(port, fn)
+            n_ops, names = ops_of(device_busy(port, fn, warm=True))
             check(n_ops is None or n_ops <= 8,
                   f"gf_hash {family}: {n_ops} device operations a call > 8: {names}")
             row.update(kernel_finish_ms=finish_ms[family],
@@ -1157,8 +1195,9 @@ def tree_fingerprints(port: Port, device, family: str, n_words: int,
         """Times and device operations, once the path's launches are read."""
         nodes = th._leaf_digests(rows)
         fold = lambda: th._fold_impl(nodes, B, n_bytes)  # noqa: E731
-        fold_ops, fold_names = device_ops_per_call(port, fold)
-        fp_ops, _ = device_ops_per_call(port, lambda: th.fingerprint_array(x))
+        fold_ops, fold_names = ops_of(device_busy(port, fold, warm=True))
+        fp_ops, _ = ops_of(device_busy(port, lambda: th.fingerprint_array(x),
+                                       warm=True))
         lens_np = lens.cpu().numpy()
         b_ms, b_by = bound(name, B, lw, lw, 1, lens_np)
         floor = (dict(zip(("design_floor_ms", "design_floor_by"),
@@ -1525,11 +1564,10 @@ def sharded_bloom(port: Port, device, batches, card: str,
         busy = device_busy(port, lambda: [f.check_and_add_batch(d) for d in docs])
         out = {"stage_ms_per_batch": stage_ms, "launch_part_ms": launch_ms}
         if busy is not None:
-            wall, kern, copy = busy
-            out.update({"profiled_wall_ms_per_batch": wall / len(docs),
-                        "device_kernel_ms_per_batch": kern / len(docs),
-                        "device_copy_ms_per_batch": copy / len(docs),
-                        "device_idle_share": 1 - (kern + copy) / wall})
+            out.update({"profiled_wall_ms_per_batch": busy["wall_ms"] / len(docs),
+                        "device_kernel_ms_per_batch": busy["kernel_ms"] / len(docs),
+                        "device_copy_ms_per_batch": busy["copy_ms"] / len(docs),
+                        "device_idle_share": busy["idle_share"]})
         rec["multilinear/routed/D4"]["breakdown"] = out
         print("8b routed D4 breakdown: " + json.dumps(out) + f" ({card})")
         del f
@@ -1886,6 +1924,336 @@ def full_battery(port: Port, device, card: str) -> tuple[dict, dict]:
             "bic_max_corr_vs_committed": bic, "card": card}, report
 
 
+# --------------------------------------------------------------------------
+# phase 10: serving the dense-attention models
+# --------------------------------------------------------------------------
+
+SERVE_ARCH = "mistral_nemo_12b"
+# rtol = atol of the reference's own test_decode_matches_forward
+PARITY_TOL = 2e-3
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_TREE_WORDS, SERVE_NEW = 8, 2048, 512, 32
+SERVE_ADMISSION_ITEMS = 10**6
+# prompt lengths: the three measured ones first, then 25 drawn in [64, 1500]
+SERVE_LENS = (1500, 64, 512)
+SERVE_REPEATS = (2, 9, 0, 17)  # requests 28-31 repeat these (the 4th wave)
+
+
+@contextlib.contextmanager
+def f32_products(torch):
+    """Full-f32 products on the card (TF32 off for matmuls and cuDNN)."""
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = saved
+
+
+def agree(port, got, want, what: str) -> float:
+    """Max abs difference of two float tensors; fails the run past
+    rtol = atol = PARITY_TOL."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    check(bool(port.torch.isfinite(got).all()), f"{what}: non-finite values")
+    check(port.torch.allclose(got, want, rtol=PARITY_TOL, atol=PARITY_TOL),
+          f"{what}: max abs err {float((got - want).abs().max()):.3e} past "
+          f"rtol = atol = {PARITY_TOL}")
+    return float((got - want).abs().max())
+
+
+def model_parity(port: Port, device, card: str) -> dict:
+    """10a: `mistral_nemo_12b` at its published width with n_layers cut to 2,
+    float32 with TF32 off; one seeded set of weights, drawn on the card,
+    and its copy on the CPU. Prefill logits of a (2, 33) batch, the next token's
+    decode logits and `lm_loss` on the card == on the CPU; on the card,
+    prefill(32) + decode(1) == the full forward's last logits."""
+    import copy
+    import dataclasses
+
+    torch = port.torch
+    cfg = dataclasses.replace(port.get_config(SERVE_ARCH), n_layers=2,
+                              dtype="float32")
+    print(f"10a reduced: {SERVE_ARCH} n_layers 40 -> 2 (full width: d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), float32")
+    api = port.build_model(cfg)
+    t0 = time.perf_counter()
+    on_card = api.init(torch.Generator(device).manual_seed(SEED))
+    cpu = copy.deepcopy(on_card).to("cpu")  # Module.to moves in place
+    init_s = time.perf_counter() - t0
+    g = np.random.default_rng(SEED)
+    toks = g.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    batch = {"tokens": toks,
+             "labels": g.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)}
+    err = {}
+    with f32_products(torch):
+        (lc, cc), (lg, cg) = (api.prefill(p, {"tokens": toks}, cache_len=64)
+                              for p in (cpu, on_card))
+        err["prefill"] = agree(port, lg, lc, "10a prefill logits")
+        nxt = lc.argmax(-1, keepdim=True).int().numpy()
+        (dc, _), (dg, _) = (api.decode_step(p, c, nxt, 33)
+                            for p, c in ((cpu, cc), (on_card, cg)))
+        err["decode"] = agree(port, dg, dc, "10a decode logits")
+        (Lc, _), (Lg, _) = (api.loss(p, batch) for p in (cpu, on_card))
+        err["loss"] = agree(port, Lg, Lc, "10a lm_loss")
+        t = torch.from_numpy(toks).to(device)
+        hidden, _, _ = port.transformer.forward(on_card, cfg, t, mode="train")
+        full = (hidden[:, -1] @ port.transformer.unembed_matrix(
+            on_card, cfg, hidden.dtype)).float()
+        _, caches = api.prefill(on_card, {"tokens": t[:, :32]}, cache_len=33)
+        last, _ = api.decode_step(on_card, caches, t[:, 32:], 32)
+        err["decode_vs_forward"] = agree(port, last, full,
+                                         "10a prefill(32) + decode != forward")
+    del on_card, caches, cg
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in cpu.parameters())
+    rec = {"config": f"{SERVE_ARCH}, n_layers 2, float32, TF32 off",
+           "params": n, "batch": [2, 33], "tolerance": PARITY_TOL,
+           "max_abs_err": err, "init_and_copy_s": init_s, "loss": float(Lg),
+           "card": card}
+    print(f"10a: {n} parameters; card == CPU within {PARITY_TOL}: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+    return rec
+
+
+def serve_prompts(vocab: int) -> list:
+    g = np.random.default_rng(SEED + 10)
+    lens = list(SERVE_LENS) + [int(n) for n in g.integers(64, 1501, 25)]
+    prompts = [g.integers(0, vocab, n).astype(np.int32) for n in lens]
+    return prompts + [prompts[i].copy() for i in SERVE_REPEATS]
+
+
+def serve_launches(prompts, admission: bool) -> int:
+    """The engine launches (kernel 1) a `submit_all` of `prompts` makes,
+    predicted from the request schedule: one for the short prompts' keys,
+    one tree leaf launch per long prompt (repeats included: each request is
+    fingerprinted), and with admission 4 calls of 8 requests (one per wave
+    of 8 slots: the first before the first wave, each later one at its
+    wave's first tick; the repeats are the 4th wave's last 4) of 4 launches
+    each: the router's hash, the L1 check, the one L2 shard's filter call
+    (D = 1 shard: one card) and the L1 add."""
+    n_long = sum(len(p) >= SERVE_TREE_WORDS for p in prompts)
+    n_short = len(prompts) - n_long
+    return (n_short > 0) + n_long + (4 * 4 if admission else 0)
+
+
+def host_key(eng, prompt) -> int:
+    """A prompt's key from its host twin: the tree's `digest_host` at or
+    past `tree_prompt_words`, else the prefix hasher's numpy path."""
+    toks = prompt.astype(np.uint32)
+    if len(toks) >= eng.tree_prompt_words:
+        return eng._tree_hasher().digest_host(toks)
+    return int(eng._prefix_hasher.hash_batch([toks], backend="host")[0, 0])
+
+
+def admission_vs_host(port: Port, device, svc, prompts, reqs):
+    """The engine's admission verdicts and its filters' final words == host
+    `BloomFilter`s (hashing on the CPU, the kernel's plain version) given
+    the same waves of SERVE_SLOTS requests: a wave's L1 hits are rejected,
+    its other rows take the L2 filter's pre-batch verdict and are added to
+    both filters (the service's rule, `AdmissionService._decide_batch`)."""
+    torch = port.torch
+    l2 = svc.transport.backends[0].filt
+    l1h = port.BloomFilter(n_items=4096, fp_rate=1e-3, seed=svc.seed ^ 0x11F1,
+                           device="cpu")
+    l2h = port.BloomFilter(n_items=SERVE_ADMISSION_ITEMS, fp_rate=1e-3,
+                           seed=0xB100, device="cpu")
+    check((l1h.m, l1h.k, l2h.m, l2h.k) == (svc.l1.m, svc.l1.k, l2.m, l2.k),
+          "10b admission: filter sizing")
+    want = []
+    for w in range(0, len(prompts), SERVE_SLOTS):
+        rows = [p.astype(np.uint32) for p in prompts[w:w + SERVE_SLOTS]]
+        v = ~l1h.contains_batch(rows)
+        miss = [r for r, ok in zip(rows, v) if ok]
+        if miss:
+            v[v] = ~l2h.contains_batch(miss)
+            l2h.add_batch(miss)
+            l1h.add_batch(miss)
+        want += v.tolist()
+    check([r.admitted for r in reqs] == want,
+          "10b admission: verdicts != the host filters' given the same waves")
+    check(torch.equal(l2.words(), torch.from_numpy(l2h.bits.view(np.int64)).to(device))
+          and np.array_equal(svc.l1.bits, l1h.bits),
+          "10b admission: final words != the host filters' bits")
+
+
+def serve_path(port: Port, device, card: str):
+    """10b: `mistral_nemo_12b` as published (40 layers, full width, bf16),
+    weights drawn on the card; `ServeEngine(n_slots=8, max_seq=2048,
+    tree_prompt_words=512)` over 32 requests (28 prompts of 64-1,500 tokens
+    and 4 exact repeats, 32 new tokens each), without admission and with
+    `admission_items=10**6`. Returns the record and a closure that times
+    prefill and decode (run once the phase's launches are read)."""
+    torch = port.torch
+    cfg = port.get_config(SERVE_ARCH)
+    api = port.build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+          f"10b: {n_params} parameters != param_count() + the norm scales")
+    prompts = serve_prompts(cfg.vocab_size)
+    n_long = sum(len(p) >= SERVE_TREE_WORDS for p in prompts)
+    rec = {"config": f"{SERVE_ARCH} as published: {cfg.n_layers} layers, "
+                     f"d_model {cfg.d_model}, bfloat16",
+           "params": n_params, "weights_gb": sum(
+               p.numel() * p.element_size() for p in params.parameters()) / 1e9,
+           "init_s": init_s, "requests": len(prompts), "long_prompts": n_long,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "n_slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ, "card": card}
+    runs = {}
+    for admission in (False, True):
+        label = "admission" if admission else "plain"
+        eng = port.ServeEngine(api, params, n_slots=SERVE_SLOTS,
+                               max_seq=SERVE_MAX_SEQ,
+                               tree_prompt_words=SERVE_TREE_WORDS,
+                               admission_items=SERVE_ADMISSION_ITEMS if admission else None,
+                               device=device)
+        reqs = [port.Request(i, p.copy(), max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        want = serve_launches(prompts, admission)
+        t0 = time.perf_counter()
+        launched(port, want, lambda: eng.submit_all(reqs), f"10b {label} submit_all")
+        wall = time.perf_counter() - t0
+        served = [r for r in reqs if r.admitted is not False]
+        check(all(r.done for r in reqs)
+              and all(len(r.out_tokens) == SERVE_NEW for r in served)
+              and all(0 <= t < cfg.vocab_size for r in served for t in r.out_tokens),
+              f"10b {label}: a request not done or with a wrong token count")
+        st = eng.stats
+        if admission:
+            check(st["admission_rejects"] == len(SERVE_REPEATS)
+                  and st["admission_errors"] == 0 and st["prefix_hits"] == 0
+                  and [r.req_id for r in reqs if r.admitted is False]
+                  == list(range(len(prompts) - len(SERVE_REPEATS), len(prompts))),
+                  f"10b admission: stats {st}")
+        else:
+            check(st["prefix_hits"] == len(SERVE_REPEATS)
+                  and st["prefills"] == len(prompts), f"10b plain: stats {st}")
+        # every key the engine computed at the served shapes (the short
+        # prompts' batched launch, each long prompt's tree leaf launch) ==
+        # its host twin: the prefix hasher's numpy path, the tree's
+        # `digest_host`
+        tree = eng._tree_hasher()
+        check(tree.spec == port.TreeSpec(seed=0x1E53),
+              f"10b {label}: the tree route's spec {tree.spec}")
+        want_keys = {host_key(eng, p) for p, r in zip(prompts, reqs)
+                     if r.admitted is not False}
+        check(len(want_keys) == len(prompts) - len(SERVE_REPEATS)
+              and set(eng._prefix_logit_cache) == want_keys,
+              f"10b {label}: the engine's prompt keys != their host twins")
+        long_p = next(p for p in prompts if len(p) >= SERVE_TREE_WORDS)
+        key = launched(port, 1, lambda: eng._prompt_key(long_p),
+                       f"10b {label} tree route")
+        check(key == host_key(eng, long_p),
+              "10b: a prompt of >= 512 tokens did not take the tree route")
+        if admission:
+            admission_vs_host(port, device, eng.admission, prompts, reqs)
+        n_tok = sum(len(r.out_tokens) for r in served)
+        runs[label] = {"wall_s": wall, "launches": want, "stats": dict(st),
+                       "generated_tokens": n_tok, "tokens_per_s": n_tok / wall,
+                       "requests_per_s": len(reqs) / wall,
+                       "ticks": st["ticks"]}
+        print(f"10b {label}: {len(reqs)} requests in {wall:.3f} s, "
+              f"{n_tok / wall:.1f} generated tokens/s, {len(reqs) / wall:.2f} "
+              f"requests/s, {st['ticks']} ticks, {want} engine launches "
+              f"(predicted and counted); stats {st}")
+        if not admission:
+            first = [r.out_tokens for r in reqs[:SERVE_SLOTS]]
+        del eng
+    # the first wave's greedy tokens == a manual prefill + decode_step loop:
+    # each prompt prefilled alone, the 8 caches stacked on the slot axis, 31
+    # lockstep steps at the engine's position (the wave's longest prompt)
+    wave = prompts[:SERVE_SLOTS]
+    outs = [api.prefill(params, {"tokens": p[None]}, cache_len=SERVE_MAX_SEQ)
+            for p in wave]
+    toks = [[int(lg[0].argmax())] for lg, _ in outs]
+    caches = {"blocks": {s: {k: torch.cat([c["blocks"][s][k] for _, c in outs], 1)
+                             for k in outs[0][1]["blocks"][s]}
+                         for s in outs[0][1]["blocks"]}}
+    del outs
+    pos = max(len(p) for p in wave)
+    for step in range(SERVE_NEW - 1):
+        tok = torch.tensor([[t[-1]] for t in toks], dtype=torch.int32, device=device)
+        lg, caches = api.decode_step(params, caches, tok, pos + step)
+        for t, n in zip(toks, lg.argmax(-1).tolist()):
+            t.append(n)
+    check(toks == first, "10b: the first wave's greedy tokens != a manual "
+          "prefill + decode_step loop")
+    rec["runs"] = runs
+    rec["first_wave_equals_manual_loop"] = True
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"10b: first wave == manual loop; peak memory "
+          f"{rec['peak_memory_gb']:.3f} GB (weights {rec['weights_gb']:.3f} GB)")
+
+    def measure():
+        prefill_ms, profiles = {}, {}
+        for T in (64, 512, 1500):
+            t = next(torch.from_numpy(p[None]).to(device) for p in prompts
+                     if len(p) == T)
+            fn = lambda t=t: api.prefill(  # noqa: E731
+                params, {"tokens": t}, cache_len=SERVE_MAX_SEQ)
+            prefill_ms[T] = timed(port, fn, 3)
+            profiles[f"prefill {T}"] = device_busy(port, fn, warm=True)
+        tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=device)
+        at = pos + SERVE_NEW  # a free position past the wave's tokens
+        step = lambda: api.decode_step(params, caches, tok, at)  # noqa: E731
+        decode_ms = timed(port, step, 10)
+        profiles["decode tick"] = device_busy(port, step, warm=True)
+        rec["prefill_ms"] = prefill_ms
+        rec["decode_tick_ms"] = decode_ms
+        rec["decode_batch"] = SERVE_SLOTS
+        rec["decode_position"] = at
+        rec["profiles"] = profiles
+        # the bound of a decode tick: its weights read once (bf16)
+        rec["decode_bytes_bound_ms"] = rec["weights_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3
+        print(f"10b: prefill ms {prefill_ms}; decode tick {decode_ms:.3f} ms "
+              f"(B {SERVE_SLOTS}, position {at}; weights-read bound "
+              f"{rec['decode_bytes_bound_ms']:.3f} ms); card {card}")
+        for name, prof in profiles.items():
+            if prof is not None:
+                del prof["names"]
+            print(f"10b profile of one {name}: {json.dumps(prof)}")
+    return rec, measure
+
+
+def prefix_key_row(port: Port, device, card: str) -> dict:
+    """Kernel 1 at the serving prefix-key shape of 10b's short prompts (one
+    launch of K 1, 64-bit surface, variable length, rows and width
+    pow2-bucketed as the engine buckets them) == its plain version, timed."""
+    torch = port.torch
+    prompts = [p for p in serve_prompts(port.get_config(SERVE_ARCH).vocab_size)
+               if len(p) < SERVE_TREE_WORDS]
+    N = port.autotune.pow2_at_least(max(len(p) for p in prompts))
+    B = port.autotune.pow2_at_least(len(prompts))
+    toks = np.zeros((B, N), np.uint32)
+    lens = np.zeros(B, np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)], lens[i] = p, len(p)
+    h = port.Hasher.from_spec(port.HashSpec(
+        family="multilinear", n_hashes=1, out_bits=64, variable_length=True,
+        seed=0x1E53), max_len=N, device=device)
+    t = torch.from_numpy(toks.view(np.int32)).to(device)
+    code = torch.from_numpy(lens).to(device)
+    W = h._required_width(N)
+    got = h(t, code)
+    want = port.plain("multilinear", t, h.keys, code, width=W)
+    check(torch.equal(got, want), "10: prefix keys != the plain version")
+    b_ms, b_by = bound("multihash", B, N, W, 1, lens)
+    row = {"kernel": "multihash", "family": "multilinear", "shape": "serve-prefix",
+           "B": B, "N": N, "W": W, "K": 1, "max_abs_err": 0,
+           "ms": timed(port, lambda: h(t, code), 20),
+           "graph_ms": timed_graph(port, lambda: h(t, code), 20),
+           "plain_ms": timed(port, lambda: port.plain(
+               "multilinear", t, h.keys, code, width=W), 3),
+           "bound_ms": b_ms, "bound_by": b_by, "card": card}
+    print(json.dumps(row))
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -2029,9 +2397,32 @@ def main() -> int:
         with phase("phase 9 measurements"):
             measure_9b()
         rows += probe_rows
+        # phase 10 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        port.tally = 0
+        with phase("phase 10a: model parity at full width (2 layers, f32)"):
+            parity = model_parity(port, device, card)
+        with phase("phase 10b: serving mistral_nemo_12b at its published size"):
+            serving, measure_10b = serve_path(port, device, card)
+        serve_counts = port.counts()
+        print(f"phase 10 launches: {serve_counts} (checked call by call: "
+              f"{port.tally})")
+        check(serve_counts["multihash"] > 0
+              and serve_counts["multihash"] == port.tally
+              and not serve_counts["gf_multihash"] + serve_counts["multilinear"]
+              + serve_counts["gf_multilinear"],
+              f"phase 10 launches {serve_counts} != {port.tally} multihash launches")
+        with phase("phase 10 measurements"):
+            measure_10b()
+            prefix_row = prefix_key_row(port, device, card)
+        rows.append(prefix_row)
         for rec in kernels:
             rec["phase8_launches"] = shard_launches[rec["name"]]
             rec["phase9_launches"] = battery_launches[rec["name"]]
+            rec["phase10_launches"] = serve_counts[rec["name"]]
+            if rec["name"] == "multihash":
+                rec["serve_prefix"] = {k: prefix_row[k] for k in (
+                    "ms", "graph_ms", "plain_ms", "bound_ms", "max_abs_err")}
             probe = [r for r in probe_rows if r["kernel"] == rec["name"]]
             if probe:
                 rec["battery_probe"] = {k: max(r[k] for r in probe)
@@ -2054,7 +2445,9 @@ def main() -> int:
              "sharded": {"pure": shard_pure, "bloom": shard_bloom,
                          "service": shard_svc, "lifted": lifted,
                          "launches": shard_launches},
-             "quality": {"battery": battery, "launches": battery_launches}},
+             "quality": {"battery": battery, "launches": battery_launches},
+             "serving": {"parity": parity, "serve": serving,
+                         "launches": serve_counts}},
             indent=1))
         (out_dir / "quality_report.json").write_text(json.dumps(quality_report,
                                                                 indent=1))

@@ -1,10 +1,12 @@
-"""repro_torch -- the PyTorch/CUDA port of the `repro` hashing engine.
+"""repro_torch -- the PyTorch/CUDA port of `repro`: the hashing engine and,
+on top of it, the dense-attention models and their serving engine.
 
 Imports `torch` and numpy only, never `jax` or `repro` (the JAX package is
 the reference the port is held against). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; the fused K-hash engine is two
 hand-written CUDA kernels (`kernels/csrc/`) built with nvcc on first use.
 """
-from . import checkpoint, core, data, hash, kernels, parallel, quality  # noqa: F401
+from . import (checkpoint, configs, core, data, hash, kernels, models,  # noqa: F401
+               parallel, quality, serve)
 from .data import BloomFilter, ExactDedup, HashPipeline, PipelineConfig  # noqa: F401
 from .hash import Hasher, HashSpec  # noqa: F401

@@ -1,0 +1,354 @@
+"""LM assembly: the block-structured layer stack of every assigned family.
+
+The port of `repro.models.transformer`. An architecture is a sequence of
+homogeneous *blocks* plus an optional *tail*; each block is a short list of
+sublayer descriptors (`block_spec`, pure Python, every family). This slice
+runs the attention sublayers with a dense FFN:
+  dense (yi, mistral, phi3, qwen2-vl) .... L blocks x [attn+dense]
+  gemma3 (5:1 local:global) .............. 10 blocks x [5 local, 1 global] + 2 tail
+Mamba, RWKV and MoE sublayers and cross-attention raise
+`NotImplementedError` (ROADMAP Queue 1 item 5, the next slice).
+
+Parameters are a `layers.ParamTree` whose paths are the reference's
+pytree paths, with the blocks as a list (`blocks.3.s0.attn.wq.w` is the
+reference's `blocks/s0/attn/wq/w[3]`): a Python loop over the blocks takes
+the place of `lax.scan`. Caches keep the reference's stacked layout
+(`caches["blocks"]["s0"]["k"]` is (n_blocks, B, S, Hkv, dh)); each block
+reads and writes a view of its row, in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..core.device import resolve_device
+from . import attention as attn
+from . import layers
+from .layers import ParamTree
+
+NEXT_SLICE = ("not ported yet: models/moe.py, models/ssm.py and "
+              "models/encdec.py are the next slice (ROADMAP Queue 1 item 5)")
+
+
+@dataclasses.dataclass(frozen=True)
+class SubDesc:
+    kind: str                 # attn | mamba | rwkv
+    causal: bool = True
+    window: Optional[int] = None
+    theta: float = 1e4
+    ffn: Optional[str] = "dense"   # dense | moe | None (rwkv has its own)
+    cross: bool = False            # whisper decoder cross-attention
+
+
+def block_spec(cfg):
+    """-> (n_blocks, [SubDesc] per block, [SubDesc] tail)."""
+    if cfg.family == "hybrid":  # jamba
+        per = cfg.attn_every
+        subs = []
+        for i in range(per):
+            kind = "attn" if i % per == cfg.attn_offset else "mamba"
+            ffn = "moe" if (cfg.moe and i % cfg.moe_every == cfg.moe_offset) else "dense"
+            subs.append(SubDesc(kind=kind, ffn=ffn, theta=cfg.rope_theta))
+        _check_period(cfg, per)
+        return cfg.n_layers // per, subs, []
+    if cfg.ssm_type == "rwkv6":
+        return cfg.n_layers, [SubDesc(kind="rwkv", ffn=None)], []
+    if cfg.attention == "sliding_global":
+        per = cfg.global_every
+        subs = [
+            SubDesc(kind="attn", window=cfg.sliding_window, theta=cfg.rope_theta,
+                    ffn="moe" if cfg.moe else "dense")
+            for _ in range(per - 1)
+        ] + [SubDesc(kind="attn", window=None, theta=cfg.rope_theta_global,
+                     ffn="moe" if cfg.moe else "dense")]
+        n_blocks = cfg.n_layers // per
+        n_tail = cfg.n_layers - n_blocks * per
+        tail = [dataclasses.replace(subs[i]) for i in range(n_tail)]
+        return n_blocks, subs, tail
+    if cfg.moe and cfg.moe_every > 1:  # interleaved MoE (llama4-style)
+        per = cfg.moe_every
+        subs = [SubDesc(kind="attn",
+                        ffn="moe" if i % per == cfg.moe_offset else "dense",
+                        theta=cfg.rope_theta)
+                for i in range(per)]
+        _check_period(cfg, per)
+        return cfg.n_layers // per, subs, []
+    ffn = "moe" if cfg.moe else "dense"
+    return cfg.n_layers, [SubDesc(kind="attn", ffn=ffn, theta=cfg.rope_theta)], []
+
+
+def _check_period(cfg, per: int) -> None:
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of the block period {per}")
+
+
+def check_ported(cfg) -> None:
+    """Raise `NotImplementedError` unless every sublayer of `cfg` is one
+    this slice runs (attention with a dense FFN); `build`, `init_lm`,
+    `init_caches` and `params_from_jax` call it."""
+    _, subs, tail = block_spec(cfg)
+    for desc in subs + tail:
+        if desc.kind != "attn" or desc.ffn != "dense" or desc.cross:
+            what = f"{desc.kind} sublayer" + (f" with a {desc.ffn} FFN" if desc.ffn else "")
+            raise NotImplementedError(
+                f"{cfg.name}: {what}{' and cross-attention' if desc.cross else ''}"
+                f": {NEXT_SLICE}")
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _norm_init(cfg, gen):
+    return layers.rmsnorm_init(gen, cfg.d_model) if cfg.norm == "rmsnorm" \
+        else layers.layernorm_init(gen, cfg.d_model)
+
+
+def _norm_apply(cfg, p, x):
+    return layers.rmsnorm(p, x, cfg.norm_eps) if cfg.norm == "rmsnorm" \
+        else layers.layernorm(p, x, cfg.norm_eps)
+
+
+def init_sublayer(gen, cfg, desc: SubDesc, dtype):
+    return {
+        "ln1": _norm_init(cfg, gen),
+        "attn": attn.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, bias=cfg.attn_bias, dtype=dtype),
+        "ln2": _norm_init(cfg, gen),
+        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.act,
+                               bias=cfg.mlp_bias, dtype=dtype),
+    }
+
+
+def init_block(gen, cfg, subs, dtype):
+    return {f"s{i}": init_sublayer(gen, cfg, d, dtype) for i, d in enumerate(subs)}
+
+
+def init_lm(gen: torch.Generator, cfg) -> ParamTree:
+    """Weights drawn from `gen` on its device, matrices held in the compute
+    dtype (norm scales in f32)."""
+    check_ported(cfg)
+    dtype = compute_dtype(cfg)
+    n_blocks, subs, tail = block_spec(cfg)
+    params = {}
+    if cfg.hashed_embedding:
+        params["embed"] = layers.hashed_embedding_init(
+            gen, cfg.vocab_size, cfg.d_model,
+            cfg.vocab_size // cfg.hashed_vocab_factor, cfg.hashed_n_hashes, dtype)
+    else:
+        params["embed"] = layers.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                                dtype)
+    params["blocks"] = [init_block(gen, cfg, subs, dtype) for _ in range(n_blocks)]
+    if tail:
+        params["tail"] = init_block(gen, cfg, tail, dtype)
+    params["final_norm"] = _norm_init(cfg, gen)
+    if not cfg.tie_embeddings or cfg.hashed_embedding:
+        params["lm_head"] = {"w": layers.init_normal(
+            gen, (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model), dtype)}
+    return ParamTree(params)
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg, tokens, dtype):
+    if cfg.hashed_embedding:
+        x = layers.hashed_embed(params["embed"], tokens,
+                                cfg.vocab_size // cfg.hashed_vocab_factor,
+                                cfg.hashed_n_hashes, dtype)
+    else:
+        x = layers.embed(params["embed"], tokens, dtype)
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    return x
+
+
+def unembed_matrix(params, cfg, dtype):
+    """(D, V) projection for logits."""
+    if "lm_head" in params:
+        return params["lm_head"]["w"].to(dtype)
+    return params["embed"]["tok"]["w"].to(dtype).T
+
+
+# ---------------------------------------------------------------------------
+# sublayer application (train / prefill / decode share this body)
+# ---------------------------------------------------------------------------
+
+def _positions_for(cfg, T, offset, vision_prefix, device):
+    pos = offset + torch.arange(T, device=device)
+    if cfg.pos_kind == "mrope":
+        # text stream: t=h=w=pos ; vision prefix: t=0, (h, w) on a grid
+        side = max(1, int(math.sqrt(max(vision_prefix, 1))))
+        vis = pos < vision_prefix
+        t = torch.where(vis, 0, pos)
+        h = torch.where(vis, pos // side, pos)
+        w = torch.where(vis, pos % side, pos)
+        return torch.stack([t, h, w])  # (3, T)
+    return pos  # (T,)
+
+
+def _apply_rope_q_or_k(cfg, x, positions, theta):
+    if cfg.pos_kind == "mrope":
+        return layers.apply_mrope(x, positions, cfg.mrope_sections, theta)
+    if cfg.pos_kind == "rope":
+        return layers.apply_rope(x, positions, theta)
+    return x  # learned/sinusoidal handled at embedding; 'none' for ssm
+
+
+def _qk_norm(cfg, q, k):
+    if not cfg.qk_norm:
+        return q, k
+
+    def _n(t):
+        f = t.float()
+        return (f * torch.rsqrt((f * f).mean(-1, keepdim=True) + 1e-6)).to(t.dtype)
+    return _n(q), _n(k)
+
+
+def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
+                   dtype=torch.bfloat16):
+    """x: (B, T, D). mode: 'train' | 'prefill' | 'decode'. `cache` (this
+    sublayer's, a view) is written in place. Returns x."""
+    T = x.shape[1]
+    h = _norm_apply(cfg, p["ln1"], x)
+    q, k, v = attn.qkv_project(p["attn"], h, cfg.head_dim, dtype)
+    positions = _positions_for(cfg, T, pos_offset,
+                               cfg.vision_prefix if mode != "decode" else 0, x.device)
+    q = _apply_rope_q_or_k(cfg, q, positions, desc.theta)
+    k = _apply_rope_q_or_k(cfg, k, positions, desc.theta)
+    q, k = _qk_norm(cfg, q, k)
+    if mode == "decode":
+        attn.cache_insert(cache, k, v, pos_offset)
+        o = attn.decode_attend(cache, q, pos_offset, window=desc.window)
+    else:
+        o = attn.flash_attention(q, k, v, causal=desc.causal, window=desc.window,
+                                 chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+        if mode == "prefill" and cache is not None:
+            fill = attn.ring_prefill if attn.is_ring(cache) else attn.linear_prefill
+            fill(cache, k, v, T)
+    x = x + attn.out_project(p["attn"], o, dtype)
+    h = _norm_apply(cfg, p["ln2"], x)
+    return x + layers.mlp(p["mlp"], h, act=cfg.act, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_sublayer_cache(cfg, desc: SubDesc, B, S, dtype=torch.bfloat16, device=None):
+    if desc.window is not None and S > desc.window:
+        return attn.make_ring_cache(B, desc.window, cfg.n_kv_heads, cfg.head_dim,
+                                    dtype, device)
+    return attn.make_linear_cache(B, S, cfg.n_kv_heads, cfg.head_dim, dtype, device)
+
+
+def init_caches(cfg, B, S, dtype=None, device=None):
+    """Cache tree in the reference's layout: leaves under 'blocks' stacked
+    (n_blocks, ...), 'tail' leaves unstacked."""
+    check_ported(cfg)
+    dtype = dtype or compute_dtype(cfg)
+    device = resolve_device(device)
+    n_blocks, subs, tail = block_spec(cfg)
+
+    def stacked(desc):
+        one = init_sublayer_cache(cfg, desc, B, S, dtype, device)
+        return {k: v.expand(n_blocks, *v.shape).clone() for k, v in one.items()}
+
+    caches = {"blocks": {f"s{i}": stacked(d) for i, d in enumerate(subs)}}
+    if tail:
+        caches["tail"] = {f"s{i}": init_sublayer_cache(cfg, d, B, S, dtype, device)
+                          for i, d in enumerate(tail)}
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
+            patch_embeds=None):
+    """tokens: (B, T) integer tensor. Returns (hidden (B,T,D), aux, caches):
+    aux is the MoE balance term, 0 for the dense families; `caches` are
+    the ones given, written in place (None in 'train' mode)."""
+    dtype = compute_dtype(cfg)
+    _, subs, tail = block_spec(cfg)
+    x = embed_tokens(params, cfg, tokens, dtype)
+    if patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(dtype), x[:, P:]], dim=1)
+
+    for b, p_block in enumerate(params["blocks"]):
+        for i, desc in enumerate(subs):
+            cache = None if caches is None else {
+                k: t[b] for k, t in caches["blocks"][f"s{i}"].items()}  # views
+            x = apply_sublayer(p_block[f"s{i}"], x, desc, cfg, mode=mode,
+                               pos_offset=pos_offset, cache=cache, dtype=dtype)
+    for i, desc in enumerate(tail):
+        cache = None if caches is None else caches["tail"][f"s{i}"]
+        x = apply_sublayer(params["tail"][f"s{i}"], x, desc, cfg, mode=mode,
+                           pos_offset=pos_offset, cache=cache, dtype=dtype)
+    x = _norm_apply(cfg, params["final_norm"], x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+
+
+# ---------------------------------------------------------------------------
+# chunked cross entropy (never materializes (B,T,V))
+# ---------------------------------------------------------------------------
+
+def chunked_ce_loss(params, cfg, hidden, labels, mask=None, z_loss=1e-4):
+    B, T, D = hidden.shape
+    W = unembed_matrix(params, cfg, hidden.dtype)  # (D, V)
+    C = min(cfg.ce_chunk, T)
+    if T % C:
+        raise ValueError(f"sequence length {T} is not a multiple of the CE "
+                         f"chunk {C}")
+    weights = mask.float() if mask is not None else torch.ones(
+        B, T, dtype=torch.float32, device=hidden.device)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, T, C):
+        logits = (hidden[:, c0:c0 + C] @ W).float()  # (B, C, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[:, c0:c0 + C, None].long())[..., 0]
+        zl = z_loss * lse.square()
+        total = total + ((lse - ll + zl) * weights[:, c0:c0 + C]).sum()
+    return total / (mask.sum().clamp_min(1) if mask is not None else max(B * T, 1))
+
+
+def lm_loss(params, cfg, batch, balance_coef=0.01):
+    """Forward loss (no gradient in this slice)."""
+    hidden, aux, _ = forward(params, cfg, batch["tokens"], mode="train",
+                             patch_embeds=batch.get("patch_embeds"))
+    ce = chunked_ce_loss(params, cfg, hidden, batch["labels"], batch.get("mask"))
+    return ce + balance_coef * aux, {"ce": ce, "balance": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving entry points
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg, tokens, cache_len=None, patch_embeds=None):
+    B, T = tokens.shape
+    caches = init_caches(cfg, B, cache_len or T, device=tokens.device)
+    hidden, _, caches = forward(params, cfg, tokens, mode="prefill",
+                                caches=caches, patch_embeds=patch_embeds)
+    W = unembed_matrix(params, cfg, hidden.dtype)
+    logits = (hidden[:, -1:] @ W).float()
+    return logits[:, 0], caches
+
+
+def decode_step(params, cfg, caches, token, pos: int):
+    """token: (B, 1) integer tensor; pos: the absolute position (an int).
+    Returns (logits (B, V), caches), the caches written in place."""
+    hidden, _, caches = forward(params, cfg, token, mode="decode",
+                                pos_offset=int(pos), caches=caches)
+    W = unembed_matrix(params, cfg, hidden.dtype)
+    return (hidden[:, -1] @ W).float(), caches

@@ -430,3 +430,83 @@ def test_device_sharded_bloom_launch_part_has_no_host_sync(cuda):
             torch.cuda.set_sync_debug_mode(0)
         out = out.cpu().numpy()
         assert out[:st.B].all() and not out[st.Bp:].any()
+
+
+@pytest.fixture
+def f32_matmul():
+    """Full-f32 products on the card (no TF32), restored afterwards."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("name", ["mistral_nemo_12b", "gemma3_27b_hashed",
+                                  "qwen2_vl_72b"])
+def test_smoke_model_on_card_matches_cpu(cuda, f32_matmul, name):
+    """SMOKE prefill (ring caches included), two decode steps and the loss on
+    the card == on the CPU, in f32 at rtol = atol = 1e-4, from one set of
+    seeded weights."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_config(name, smoke=True), dtype="float32")
+    api = build(cfg)
+    cpu = api.init(torch.Generator().manual_seed(7))
+    card = copy.deepcopy(cpu).to(cuda)  # Module.to moves in place
+    g = rng(0x30DE)
+    batch = {"tokens": g.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32),
+             "labels": g.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)}
+    if cfg.vision_prefix:
+        batch["patch_embeds"] = g.normal(
+            size=(2, cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    pre = {k: v for k, v in batch.items() if k != "labels"}
+    (lc, cc), (lg, cg) = (api.prefill(p, pre, cache_len=24) for p in (cpu, card))
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), **tol)
+    tok = lc.argmax(-1, keepdim=True).int().numpy()
+    for pos in (16, 17):
+        (lc, cc), (lg, cg) = (api.decode_step(p, c, tok, pos)
+                              for p, c in ((cpu, cc), (card, cg)))
+        np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), **tol)
+        tok = lc.argmax(-1, keepdim=True).int().numpy()
+    np.testing.assert_allclose(float(api.loss(card, batch)[0]),
+                               float(api.loss(cpu, batch)[0]), **tol)
+
+
+def test_serve_engine_on_card_matches_cpu(cuda, f32_matmul):
+    """The engine on the card (prompt keys by the engine kernel, tree keys,
+    admission through a device-sharded filter) == on the CPU: tokens,
+    stats, verdicts; one engine launch for the short prompts' keys."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("mistral_nemo_12b", smoke=True),
+                              dtype="float32")
+    api = build(cfg)
+    cpu = api.init(torch.Generator().manual_seed(8))
+    g = rng(0x5E)
+    ps = [g.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+          for n in (3, 20, 9, 14, 6)]
+    ps += [ps[1].copy(), ps[3].copy()]
+    for items in (None, 4096):
+        out = []
+        for params, dev in ((cpu, "cpu"), (copy.deepcopy(cpu).to(cuda), cuda)):
+            eng = ServeEngine(api, params, n_slots=3, max_seq=40,
+                              tree_prompt_words=12, admission_items=items,
+                              device=dev)
+            reqs = [Request(i, p.copy(), max_new_tokens=5) for i, p in enumerate(ps)]
+            c0 = mhk.launch_count()
+            eng.submit_all(reqs)
+            out.append(([r.out_tokens for r in reqs], [r.admitted for r in reqs],
+                        eng.stats, mhk.launch_count() - c0))
+        assert out[1][:3] == out[0][:3]
+        if items is None:  # 1 launch for the short prompts, 1 per long one
+            assert out[1][3] == 1 + sum(len(p) >= 12 for p in ps)
