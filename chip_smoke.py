@@ -131,9 +131,9 @@ filter call; and again before phase 9, whose probe-path calls are each
 checked for their exact engine launches (one per `probe_indices` call, D
 per sharded call) and whose battery must make exactly its probe path's
 launches (the adapters and metrics are PyTorch operations); and again
-before phase 10, whose serving runs must make exactly their predicted
-`multihash` launches and no other kernel's (the models are PyTorch
-operations). Any failed
+before phase 10 and before phase 11, whose serving runs must make exactly
+their predicted `multihash` launches and no other kernel's (the models are
+PyTorch operations). Any failed
 check exits non-zero. The last line is the JSON device record.
 
 9. the quality battery (`quality`, `core.baselines`, `core.gf`), a path of
@@ -176,10 +176,52 @@ check exits non-zero. The last line is the JSON device record.
        `BloomFilter`s (hashing on the CPU) given the same waves, the engine
        launches equal to the prediction (`serve_launches`), and the first
        wave's greedy tokens == a manual prefill + decode_step loop. Times: prefill
-       by prompt length (64, 512, 1,500), a decode tick at batch 8, tokens/s
-       and requests/s of each run, peak memory, the device idle share of a
-       decode tick (torch.profiler), and kernel 1 at the prefix-key shape
-       beside its bound and its plain version.
+       by prompt length (64, 512, 1,500), a decode tick at batch 8 beside
+       the bytes of weights it must read (as in 11b), tokens/s and
+       requests/s of each run, peak memory, the device idle share of a
+       decode tick and of each prefill (torch.profiler), and kernel 1 at the
+       prefix-key shape beside its bound and its plain version. 10b and each
+       of 11b's LMs run through one function, `serve_family`.
+
+11. serving the MoE, state-space and encoder-decoder models (`models/moe.py`
+    with the hash router, `models/ssm.py`, `models/encdec.py`), a path of
+    its own after phase 10 (counts set to 0 again; every `submit_all`
+    checked for its exact engine launches, 104 in all):
+    a. parity in float32 with TF32 off, one seeded set of weights on the
+       card and its copy on the CPU, within rtol = atol = 2e-3: prefill
+       logits of a (2, 33) batch, the next decode step and the loss card ==
+       CPU, and on the card prefill(32) + decode(1) == the full forward's
+       last logits (MoE at the reference's own capacity_factor 8 for that
+       check, so no token drops in either). Cuts, so that the CPU twin
+       fits: `granite_moe_hash` and `granite_moe_1b_a400m` n_layers 24 -> 2,
+       `rwkv6_1_6b` 24 -> 2, `whisper_large_v3` 32 + 32 -> 2 + 2 layers over
+       (2, 1,500, 1,280) frames, each at full width; jamba's Mamba
+       sublayer alone at its published width (d_model 4,096, d_inner 8,192,
+       d_state 16; output, conv tail, state, and 32 + 1 tokens == 33); and
+       `jamba_smoke` and `llama4_smoke` whole (a CPU twin of jamba or llama4
+       at full width would need 53 GB and 74 GB of f32);
+    b. serving in bf16 at published widths, weights drawn on the card, each
+       model freed before the next: `ServeEngine(n_slots=8, max_seq=2048,
+       tree_prompt_words=512)` over 16 requests (14 prompts of 64-1,500
+       tokens, 2 exact repeats of first-wave prompts, 16 new tokens each)
+       for `granite_moe_hash` as published (24 layers, 32 experts top-8,
+       the hash router; without and with `admission_items=10**6`),
+       `granite_moe_1b_a400m` (the learned router) and `rwkv6_1_6b` as
+       published, `jamba_v0_1_52b` at full width with n_layers 32 -> 8 (one
+       block period: 7 Mamba, 1 attention, 4 MoE layers; 104 GB as
+       published does not fit one card) and `llama4_maverick_400b_a17b` at
+       full width with n_layers 48 -> 2 (one dense and one MoE layer of 128
+       experts with the shared expert), each with phase 10b's checks
+       (`serve_runs`, `manual_wave`); `whisper_large_v3` as published
+       through its model API (the engine needs `init_caches`, which an
+       enc-dec refuses, as the reference's does): encode (8, 1,500, 1,280)
+       frames, prefill 4 tokens, 32 greedy decode steps. Times: prefill by
+       length (64, 512, 1,500), a decode tick at batch 8 beside the bytes
+       of weights it must read over 3.35 TB/s (an untied embedding: 8 rows;
+       an MoE layer: the min(E, 8 k) experts 8 tokens can reach), tokens/s,
+       peak memory above what earlier phases hold (10b's model is freed
+       first), a tick's device operations and idle share
+       (torch.profiler), whisper's encoder.
 """
 from __future__ import annotations
 
@@ -278,7 +320,7 @@ class Port:
         from repro_torch import quality
         from repro_torch.configs import get_config
         from repro_torch.core import baselines
-        from repro_torch.models import build, transformer
+        from repro_torch.models import build, encdec, ssm, transformer
         from repro_torch.serve import Request, ServeEngine
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
@@ -300,6 +342,7 @@ class Port:
         self.get_config, self.build_model = get_config, build
         self.transformer, self.Request, self.ServeEngine = (transformer, Request,
                                                             ServeEngine)
+        self.encdec, self.ssm = encdec, ssm
         self.tally = 0  # engine launches `launched` has checked
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
@@ -1936,6 +1979,9 @@ SERVE_ADMISSION_ITEMS = 10**6
 # prompt lengths: the three measured ones first, then 25 drawn in [64, 1500]
 SERVE_LENS = (1500, 64, 512)
 SERVE_REPEATS = (2, 9, 0, 17)  # requests 28-31 repeat these (the 4th wave)
+# 11b: 16 requests a model: the 3 measured lengths, 11 drawn, 2 repeats of
+# first-wave prompts (the second wave's last two)
+NEW_11, DRAWN_11, REPEATS_11 = 16, 11, (2, 0)
 
 
 @contextlib.contextmanager
@@ -1961,79 +2007,120 @@ def agree(port, got, want, what: str) -> float:
     return float((got - want).abs().max())
 
 
-def model_parity(port: Port, device, card: str) -> dict:
+def model_parity(port: Port, device, card: str, name: str = SERVE_ARCH,
+                 n_layers: int | None = 2, tag: str = "10a") -> dict:
     """10a: `mistral_nemo_12b` at its published width with n_layers cut to 2,
     float32 with TF32 off; one seeded set of weights, drawn on the card,
     and its copy on the CPU. Prefill logits of a (2, 33) batch, the next token's
-    decode logits and `lm_loss` on the card == on the CPU; on the card,
-    prefill(32) + decode(1) == the full forward's last logits."""
+    decode logits and the loss on the card == on the CPU; on the card,
+    prefill(32) + decode(1) == the full forward's last logits. Phase 11a
+    runs the same for its models (`name`; n_layers None: a SMOKE config,
+    whole). An encoder-decoder model has its encoder cut to n_layers too and
+    takes (2, encoder_positions, d_model) frames with every call; its full
+    forward is `encode` then `decoder_forward`. An MoE model's prefill(32) +
+    decode(1) check runs at the capacity_factor 8 of the reference's own
+    decode test, so no token drops in either (drops differ between 33 and
+    32 tokens by design)."""
     import copy
     import dataclasses
 
     torch = port.torch
-    cfg = dataclasses.replace(port.get_config(SERVE_ARCH), n_layers=2,
-                              dtype="float32")
-    print(f"10a reduced: {SERVE_ARCH} n_layers 40 -> 2 (full width: d_model "
-          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), float32")
+    if n_layers is None:
+        cfg = dataclasses.replace(port.get_config(name, smoke=True), dtype="float32")
+        print(f"{tag}: {cfg.name} (the SMOKE config of {name}), whole, float32")
+    else:
+        full = port.get_config(name)
+        cuts = {"n_layers": n_layers}
+        if full.n_encoder_layers:
+            cuts["n_encoder_layers"] = n_layers
+        cfg = dataclasses.replace(full, **cuts, dtype="float32")
+        print(f"{tag} reduced: {name} " + ", ".join(
+            f"{k} {getattr(full, k)} -> {v}" for k, v in cuts.items())
+            + f" (full width: d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}), float32")
     api = port.build_model(cfg)
     t0 = time.perf_counter()
     on_card = api.init(torch.Generator(device).manual_seed(SEED))
     cpu = copy.deepcopy(on_card).to("cpu")  # Module.to moves in place
     init_s = time.perf_counter() - t0
     g = np.random.default_rng(SEED)
+    extra = {}  # what every call of an encoder-decoder model also takes
+    if cfg.n_encoder_layers:
+        extra["frames"] = g.normal(
+            size=(2, cfg.encoder_positions, cfg.d_model)).astype(np.float32)
     toks = g.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
-    batch = {"tokens": toks,
-             "labels": g.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)}
+    n_loss = 33 - 33 % min(cfg.ce_chunk, 33)  # a multiple of the CE chunk
+    batch = {**extra, "tokens": toks[:, :n_loss],
+             "labels": g.integers(0, cfg.vocab_size, (2, n_loss)).astype(np.int32)}
+
+    def forward(params, t, ex):
+        if "frames" in ex:
+            return port.encdec.decoder_forward(
+                params, cfg, t, mode="train",
+                enc_out=port.encdec.encode(params, cfg, ex["frames"]))[0]
+        return port.transformer.forward(params, cfg, t, mode="train")[0]
+
     err = {}
     with f32_products(torch):
-        (lc, cc), (lg, cg) = (api.prefill(p, {"tokens": toks}, cache_len=64)
+        (lc, cc), (lg, cg) = (api.prefill(p, {**extra, "tokens": toks}, cache_len=64)
                               for p in (cpu, on_card))
-        err["prefill"] = agree(port, lg, lc, "10a prefill logits")
+        err["prefill"] = agree(port, lg, lc, f"{tag} prefill logits")
         nxt = lc.argmax(-1, keepdim=True).int().numpy()
         (dc, _), (dg, _) = (api.decode_step(p, c, nxt, 33)
                             for p, c in ((cpu, cc), (on_card, cg)))
-        err["decode"] = agree(port, dg, dc, "10a decode logits")
+        err["decode"] = agree(port, dg, dc, f"{tag} decode logits")
         (Lc, _), (Lg, _) = (api.loss(p, batch) for p in (cpu, on_card))
-        err["loss"] = agree(port, Lg, Lc, "10a lm_loss")
+        err["loss"] = agree(port, Lg, Lc, f"{tag} loss")
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+            api = port.build_model(cfg)
         t = torch.from_numpy(toks).to(device)
-        hidden, _, _ = port.transformer.forward(on_card, cfg, t, mode="train")
+        ex = {k: torch.from_numpy(v).to(device) for k, v in extra.items()}
+        hidden = forward(on_card, t, ex)
         full = (hidden[:, -1] @ port.transformer.unembed_matrix(
             on_card, cfg, hidden.dtype)).float()
-        _, caches = api.prefill(on_card, {"tokens": t[:, :32]}, cache_len=33)
+        _, caches = api.prefill(on_card, {**ex, "tokens": t[:, :32]}, cache_len=33)
         last, _ = api.decode_step(on_card, caches, t[:, 32:], 32)
         err["decode_vs_forward"] = agree(port, last, full,
-                                         "10a prefill(32) + decode != forward")
-    del on_card, caches, cg
+                                         f"{tag} prefill(32) + decode != forward")
+    del on_card, caches, cg, ex
     torch.cuda.empty_cache()
     n = sum(p.numel() for p in cpu.parameters())
-    rec = {"config": f"{SERVE_ARCH}, n_layers 2, float32, TF32 off",
+    rec = {"config": (cfg.name if n_layers is None else f"{name}, " + ", ".join(
+                          f"{k} {v}" for k, v in cuts.items()))
+                     + ", float32, TF32 off",
            "params": n, "batch": [2, 33], "tolerance": PARITY_TOL,
            "max_abs_err": err, "init_and_copy_s": init_s, "loss": float(Lg),
            "card": card}
-    print(f"10a: {n} parameters; card == CPU within {PARITY_TOL}: "
+    if extra:
+        rec["frames"] = list(extra["frames"].shape)
+    print(f"{tag}: {n} parameters; card == CPU within {PARITY_TOL}: "
           + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
     return rec
 
 
-def serve_prompts(vocab: int) -> list:
+def serve_prompts(vocab: int, n_drawn: int = 25, repeats=SERVE_REPEATS) -> list:
+    """The measured lengths (SERVE_LENS) and `n_drawn` drawn in [64, 1500],
+    then exact repeats of the prompts at `repeats`."""
     g = np.random.default_rng(SEED + 10)
-    lens = list(SERVE_LENS) + [int(n) for n in g.integers(64, 1501, 25)]
+    lens = list(SERVE_LENS) + [int(n) for n in g.integers(64, 1501, n_drawn)]
     prompts = [g.integers(0, vocab, n).astype(np.int32) for n in lens]
-    return prompts + [prompts[i].copy() for i in SERVE_REPEATS]
+    return prompts + [prompts[i].copy() for i in repeats]
 
 
 def serve_launches(prompts, admission: bool) -> int:
     """The engine launches (kernel 1) a `submit_all` of `prompts` makes,
     predicted from the request schedule: one for the short prompts' keys,
     one tree leaf launch per long prompt (repeats included: each request is
-    fingerprinted), and with admission 4 calls of 8 requests (one per wave
-    of 8 slots: the first before the first wave, each later one at its
-    wave's first tick; the repeats are the 4th wave's last 4) of 4 launches
+    fingerprinted), and with admission one call per wave of 8 requests (8
+    slots; the first before the first wave, each later one at its wave's
+    first tick; the repeats are the last wave's last ones) of 4 launches
     each: the router's hash, the L1 check, the one L2 shard's filter call
     (D = 1 shard: one card) and the L1 add."""
     n_long = sum(len(p) >= SERVE_TREE_WORDS for p in prompts)
     n_short = len(prompts) - n_long
-    return (n_short > 0) + n_long + (4 * 4 if admission else 0)
+    waves = -(-len(prompts) // SERVE_SLOTS)
+    return (n_short > 0) + n_long + (4 * waves if admission else 0)
 
 
 def host_key(eng, prompt) -> int:
@@ -2045,7 +2132,7 @@ def host_key(eng, prompt) -> int:
     return int(eng._prefix_hasher.hash_batch([toks], backend="host")[0, 0])
 
 
-def admission_vs_host(port: Port, device, svc, prompts, reqs):
+def admission_vs_host(port: Port, device, svc, prompts, reqs, tag: str = "10b"):
     """The engine's admission verdicts and its filters' final words == host
     `BloomFilter`s (hashing on the CPU, the kernel's plain version) given
     the same waves of SERVE_SLOTS requests: a wave's L1 hits are rejected,
@@ -2058,7 +2145,7 @@ def admission_vs_host(port: Port, device, svc, prompts, reqs):
     l2h = port.BloomFilter(n_items=SERVE_ADMISSION_ITEMS, fp_rate=1e-3,
                            seed=0xB100, device="cpu")
     check((l1h.m, l1h.k, l2h.m, l2h.k) == (svc.l1.m, svc.l1.k, l2.m, l2.k),
-          "10b admission: filter sizing")
+          f"{tag} admission: filter sizing")
     want = []
     for w in range(0, len(prompts), SERVE_SLOTS):
         rows = [p.astype(np.uint32) for p in prompts[w:w + SERVE_SLOTS]]
@@ -2070,103 +2157,93 @@ def admission_vs_host(port: Port, device, svc, prompts, reqs):
             l1h.add_batch(miss)
         want += v.tolist()
     check([r.admitted for r in reqs] == want,
-          "10b admission: verdicts != the host filters' given the same waves")
+          f"{tag} admission: verdicts != the host filters' given the same waves")
     check(torch.equal(l2.words(), torch.from_numpy(l2h.bits.view(np.int64)).to(device))
           and np.array_equal(svc.l1.bits, l1h.bits),
-          "10b admission: final words != the host filters' bits")
+          f"{tag} admission: final words != the host filters' bits")
 
 
-def serve_path(port: Port, device, card: str):
-    """10b: `mistral_nemo_12b` as published (40 layers, full width, bf16),
-    weights drawn on the card; `ServeEngine(n_slots=8, max_seq=2048,
-    tree_prompt_words=512)` over 32 requests (28 prompts of 64-1,500 tokens
-    and 4 exact repeats, 32 new tokens each), without admission and with
-    `admission_items=10**6`. Returns the record and a closure that times
-    prefill and decode (run once the phase's launches are read)."""
-    torch = port.torch
-    cfg = port.get_config(SERVE_ARCH)
-    api = port.build_model(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = api.init(torch.Generator(device).manual_seed(SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in params.parameters())
-    check(n_params == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
-          f"10b: {n_params} parameters != param_count() + the norm scales")
-    prompts = serve_prompts(cfg.vocab_size)
-    n_long = sum(len(p) >= SERVE_TREE_WORDS for p in prompts)
-    rec = {"config": f"{SERVE_ARCH} as published: {cfg.n_layers} layers, "
-                     f"d_model {cfg.d_model}, bfloat16",
-           "params": n_params, "weights_gb": sum(
-               p.numel() * p.element_size() for p in params.parameters()) / 1e9,
-           "init_s": init_s, "requests": len(prompts), "long_prompts": n_long,
-           "prompt_tokens": int(sum(len(p) for p in prompts)),
-           "n_slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ, "card": card}
-    runs = {}
-    for admission in (False, True):
+def serve_runs(port: Port, device, tag: str, api, params, prompts, n_repeats: int,
+               n_new: int, admissions=(False, True)):
+    """`ServeEngine(n_slots=8, max_seq=2048, tree_prompt_words=512)` over
+    `prompts` (the last `n_repeats` exact repeats of first-wave prompts),
+    `n_new` new tokens each, for each admission setting: every admitted
+    request done with its tokens, the repeats prefix hits (plain) or
+    rejections (admission), the engine launches == `serve_launches`, every
+    prompt key == its host twin, with admission the verdicts and filter
+    words == the host filters'. Returns the runs' records and the plain
+    run's first-wave tokens."""
+    vocab = api.cfg.vocab_size
+    runs, first = {}, None
+    for admission in admissions:
         label = "admission" if admission else "plain"
         eng = port.ServeEngine(api, params, n_slots=SERVE_SLOTS,
                                max_seq=SERVE_MAX_SEQ,
                                tree_prompt_words=SERVE_TREE_WORDS,
                                admission_items=SERVE_ADMISSION_ITEMS if admission else None,
                                device=device)
-        reqs = [port.Request(i, p.copy(), max_new_tokens=SERVE_NEW)
+        reqs = [port.Request(i, p.copy(), max_new_tokens=n_new)
                 for i, p in enumerate(prompts)]
         want = serve_launches(prompts, admission)
         t0 = time.perf_counter()
-        launched(port, want, lambda: eng.submit_all(reqs), f"10b {label} submit_all")
+        launched(port, want, lambda: eng.submit_all(reqs), f"{tag} {label} submit_all")
         wall = time.perf_counter() - t0
         served = [r for r in reqs if r.admitted is not False]
         check(all(r.done for r in reqs)
-              and all(len(r.out_tokens) == SERVE_NEW for r in served)
-              and all(0 <= t < cfg.vocab_size for r in served for t in r.out_tokens),
-              f"10b {label}: a request not done or with a wrong token count")
+              and all(len(r.out_tokens) == n_new for r in served)
+              and all(0 <= t < vocab for r in served for t in r.out_tokens),
+              f"{tag} {label}: a request not done or with a wrong token count")
         st = eng.stats
         if admission:
-            check(st["admission_rejects"] == len(SERVE_REPEATS)
+            check(st["admission_rejects"] == n_repeats
                   and st["admission_errors"] == 0 and st["prefix_hits"] == 0
                   and [r.req_id for r in reqs if r.admitted is False]
-                  == list(range(len(prompts) - len(SERVE_REPEATS), len(prompts))),
-                  f"10b admission: stats {st}")
+                  == list(range(len(prompts) - n_repeats, len(prompts))),
+                  f"{tag} admission: stats {st}")
         else:
-            check(st["prefix_hits"] == len(SERVE_REPEATS)
-                  and st["prefills"] == len(prompts), f"10b plain: stats {st}")
+            check(st["prefix_hits"] == n_repeats
+                  and st["prefills"] == len(prompts), f"{tag} plain: stats {st}")
         # every key the engine computed at the served shapes (the short
         # prompts' batched launch, each long prompt's tree leaf launch) ==
         # its host twin: the prefix hasher's numpy path, the tree's
         # `digest_host`
         tree = eng._tree_hasher()
         check(tree.spec == port.TreeSpec(seed=0x1E53),
-              f"10b {label}: the tree route's spec {tree.spec}")
+              f"{tag} {label}: the tree route's spec {tree.spec}")
         want_keys = {host_key(eng, p) for p, r in zip(prompts, reqs)
                      if r.admitted is not False}
-        check(len(want_keys) == len(prompts) - len(SERVE_REPEATS)
+        check(len(want_keys) == len(prompts) - n_repeats
               and set(eng._prefix_logit_cache) == want_keys,
-              f"10b {label}: the engine's prompt keys != their host twins")
+              f"{tag} {label}: the engine's prompt keys != their host twins")
         long_p = next(p for p in prompts if len(p) >= SERVE_TREE_WORDS)
         key = launched(port, 1, lambda: eng._prompt_key(long_p),
-                       f"10b {label} tree route")
+                       f"{tag} {label} tree route")
         check(key == host_key(eng, long_p),
-              "10b: a prompt of >= 512 tokens did not take the tree route")
+              f"{tag}: a prompt of >= 512 tokens did not take the tree route")
         if admission:
-            admission_vs_host(port, device, eng.admission, prompts, reqs)
+            admission_vs_host(port, device, eng.admission, prompts, reqs, tag)
         n_tok = sum(len(r.out_tokens) for r in served)
         runs[label] = {"wall_s": wall, "launches": want, "stats": dict(st),
                        "generated_tokens": n_tok, "tokens_per_s": n_tok / wall,
                        "requests_per_s": len(reqs) / wall,
                        "ticks": st["ticks"]}
-        print(f"10b {label}: {len(reqs)} requests in {wall:.3f} s, "
+        print(f"{tag} {label}: {len(reqs)} requests in {wall:.3f} s, "
               f"{n_tok / wall:.1f} generated tokens/s, {len(reqs) / wall:.2f} "
               f"requests/s, {st['ticks']} ticks, {want} engine launches "
               f"(predicted and counted); stats {st}")
         if not admission:
             first = [r.out_tokens for r in reqs[:SERVE_SLOTS]]
         del eng
-    # the first wave's greedy tokens == a manual prefill + decode_step loop:
-    # each prompt prefilled alone, the 8 caches stacked on the slot axis, 31
-    # lockstep steps at the engine's position (the wave's longest prompt)
+    return runs, first
+
+
+def manual_wave(port: Port, device, tag: str, api, params, prompts, n_new: int,
+                first):
+    """The first wave's greedy tokens == a manual prefill + decode_step loop:
+    each prompt prefilled alone, the 8 caches stacked on the slot axis,
+    n_new - 1 lockstep steps at the engine's position (the wave's longest
+    prompt). Returns the stacked caches and that position."""
+    torch = port.torch
     wave = prompts[:SERVE_SLOTS]
     outs = [api.prefill(params, {"tokens": p[None]}, cache_len=SERVE_MAX_SEQ)
             for p in wave]
@@ -2176,48 +2253,134 @@ def serve_path(port: Port, device, card: str):
                          for s in outs[0][1]["blocks"]}}
     del outs
     pos = max(len(p) for p in wave)
-    for step in range(SERVE_NEW - 1):
+    for step in range(n_new - 1):
         tok = torch.tensor([[t[-1]] for t in toks], dtype=torch.int32, device=device)
         lg, caches = api.decode_step(params, caches, tok, pos + step)
         for t, n in zip(toks, lg.argmax(-1).tolist()):
             t.append(n)
-    check(toks == first, "10b: the first wave's greedy tokens != a manual "
+    check(toks == first, f"{tag}: the first wave's greedy tokens != a manual "
           "prefill + decode_step loop")
+    return caches, pos
+
+
+def serve_measure(port: Port, device, card: str, tag: str, rec: dict, api, params,
+                  prompts, caches, at: int, profile_prefill: bool = True):
+    """Prefill ms at 64, 512 and 1,500 tokens and a decode tick at batch 8
+    (position `at`, free in `caches`), each warm (CUDA events), and
+    torch.profiler's record of a decode tick (and of each prefill when
+    `profile_prefill`), into `rec`."""
+    torch = port.torch
+    prefill_ms, profiles = {}, {}
+    for T in (64, 512, 1500):
+        t = next(torch.from_numpy(p[None]).to(device) for p in prompts
+                 if len(p) == T)
+        fn = lambda t=t: api.prefill(  # noqa: E731
+            params, {"tokens": t}, cache_len=SERVE_MAX_SEQ)
+        prefill_ms[T] = timed(port, fn, 3)
+        if profile_prefill:
+            profiles[f"prefill {T}"] = device_busy(port, fn, warm=True)
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=device)
+    step = lambda: api.decode_step(params, caches, tok, at)  # noqa: E731
+    decode_ms = timed(port, step, 10)
+    profiles["decode tick"] = device_busy(port, step, warm=True)
+    rec["prefill_ms"] = prefill_ms
+    rec["decode_tick_ms"] = decode_ms
+    rec["decode_batch"] = SERVE_SLOTS
+    rec["decode_position"] = at
+    rec["profiles"] = profiles
+    print(f"{tag}: prefill ms {prefill_ms}; decode tick {decode_ms:.3f} ms "
+          f"(B {SERVE_SLOTS}, position {at}); card {card}")
+    for name, prof in profiles.items():
+        if prof is not None:
+            del prof["names"]
+        print(f"{tag} profile of one {name}: {json.dumps(prof)}")
+
+
+def tick_read_bytes(cfg, params, B: int) -> int:
+    """Bytes of weights a decode tick at batch B must read: every weight
+    once, but of an untied embedding table the B rows gathered, and in an
+    MoE layer only the experts B tokens can reach (min(E, B*k) of E)."""
+    keep = (min(cfg.n_experts, B * cfg.experts_per_token) / cfg.n_experts
+            if cfg.moe else 1.0)
+    tied = "lm_head" not in params
+    n = 0.0
+    for name, p in params.named_parameters():
+        b = p.numel() * p.element_size()
+        if name == "embed.tok.w" and not tied:
+            b = B * p.shape[1] * p.element_size()
+        elif ".moe.w_" in name:
+            b *= keep
+        n += b
+    return int(n)
+
+
+def serve_family(port: Port, device, card: str, name: str, n_layers=None,
+                 admissions=(False, True), *, tag: str | None = None,
+                 n_drawn: int = DRAWN_11, repeats=REPEATS_11, n_new: int = NEW_11,
+                 count_params: bool = False, profile_prefill: bool = False) -> dict:
+    """One LM in bf16, weights drawn on the card (as published, or at full
+    width with n_layers cut), served by `serve_runs` for each admission
+    setting over the measured lengths, `n_drawn` prompts drawn in
+    [64, 1500] and exact repeats of the first-wave prompts at `repeats`,
+    `n_new` new tokens each; the first wave == a manual loop; then prefill
+    and decode times, peak memory and a decode tick's profile (and each
+    prefill's with `profile_prefill`). 11b serves each of its LMs so (16
+    requests, 16 new tokens); 10b serves mistral_nemo_12b as published
+    over 32 requests (28 drawn, 4 repeats, 32 new tokens), with
+    `count_params` checking the drawn parameters against `param_count()`.
+    The weights are freed before it returns."""
+    import dataclasses
+
+    torch = port.torch
+    full = port.get_config(name)
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    tag = tag or f"11b {name}"
+    api = port.build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if count_params:
+        check(n_params == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+              f"{tag}: {n_params} parameters != param_count() + the norm scales")
+    prompts = serve_prompts(cfg.vocab_size, n_drawn, repeats)
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    rec = {"config": (f"{name} as published" if n_layers is None else
+                      f"{name} at full width, n_layers {full.n_layers} -> {n_layers}")
+                     + f": {cfg.n_layers} layers, d_model {cfg.d_model}, bfloat16",
+           "params": n_params, "weights_gb": weights / 1e9, "init_s": init_s,
+           "requests": len(prompts),
+           "long_prompts": sum(len(p) >= SERVE_TREE_WORDS for p in prompts),
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "n_slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ, "card": card}
+    print(f"{tag}: {rec['config']}, {n_params} parameters "
+          f"({rec['weights_gb']:.3f} GB) drawn in {init_s:.3f} s")
+    runs, first = serve_runs(port, device, tag, api, params, prompts,
+                             len(repeats), n_new, admissions)
+    caches, pos = manual_wave(port, device, tag, api, params, prompts, n_new, first)
     rec["runs"] = runs
     rec["first_wave_equals_manual_loop"] = True
-    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    print(f"10b: first wave == manual loop; peak memory "
-          f"{rec['peak_memory_gb']:.3f} GB (weights {rec['weights_gb']:.3f} GB)")
-
-    def measure():
-        prefill_ms, profiles = {}, {}
-        for T in (64, 512, 1500):
-            t = next(torch.from_numpy(p[None]).to(device) for p in prompts
-                     if len(p) == T)
-            fn = lambda t=t: api.prefill(  # noqa: E731
-                params, {"tokens": t}, cache_len=SERVE_MAX_SEQ)
-            prefill_ms[T] = timed(port, fn, 3)
-            profiles[f"prefill {T}"] = device_busy(port, fn, warm=True)
-        tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=device)
-        at = pos + SERVE_NEW  # a free position past the wave's tokens
-        step = lambda: api.decode_step(params, caches, tok, at)  # noqa: E731
-        decode_ms = timed(port, step, 10)
-        profiles["decode tick"] = device_busy(port, step, warm=True)
-        rec["prefill_ms"] = prefill_ms
-        rec["decode_tick_ms"] = decode_ms
-        rec["decode_batch"] = SERVE_SLOTS
-        rec["decode_position"] = at
-        rec["profiles"] = profiles
-        # the bound of a decode tick: its weights read once (bf16)
-        rec["decode_bytes_bound_ms"] = rec["weights_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3
-        print(f"10b: prefill ms {prefill_ms}; decode tick {decode_ms:.3f} ms "
-              f"(B {SERVE_SLOTS}, position {at}; weights-read bound "
-              f"{rec['decode_bytes_bound_ms']:.3f} ms); card {card}")
-        for name, prof in profiles.items():
-            if prof is not None:
-                del prof["names"]
-            print(f"10b profile of one {name}: {json.dumps(prof)}")
-    return rec, measure
+    serve_measure(port, device, card, tag, rec, api, params, prompts, caches,
+                  pos + n_new, profile_prefill=profile_prefill)
+    rec["peak_memory_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    rec["held_before_gb"] = base / 1e9
+    read = tick_read_bytes(cfg, params, SERVE_SLOTS)
+    rec["decode_read_gb"] = read / 1e9
+    rec["decode_bound_ms"] = read / HBM_BYTES_PER_S * 1e3
+    rec["decode_all_weights_ms"] = weights / HBM_BYTES_PER_S * 1e3
+    print(f"{tag}: first wave == manual loop; decode tick "
+          f"{rec['decode_tick_ms']:.3f} ms against a weights-read bound of "
+          f"{rec['decode_bound_ms']:.3f} ms ({rec['decode_read_gb']:.3f} GB; all "
+          f"weights {rec['decode_all_weights_ms']:.3f} ms); peak memory "
+          f"{rec['peak_memory_gb']:.3f} GB above the {base / 1e9:.3f} GB that "
+          f"earlier phases hold; card {card}")
+    del params, caches
+    torch.cuda.empty_cache()
+    return rec
 
 
 def prefix_key_row(port: Port, device, card: str) -> dict:
@@ -2252,6 +2415,147 @@ def prefix_key_row(port: Port, device, card: str) -> dict:
            "bound_ms": b_ms, "bound_by": b_by, "card": card}
     print(json.dumps(row))
     return row
+
+
+# --------------------------------------------------------------------------
+# phase 11: serving the MoE, state-space and encoder-decoder models
+# --------------------------------------------------------------------------
+
+# 11a: (arch, n_layers cut to; None runs its SMOKE config whole)
+PARITY_11 = (("granite_moe_hash", 2), ("granite_moe_1b_a400m", 2),
+             ("rwkv6_1_6b", 2), ("jamba_v0_1_52b", None),
+             ("llama4_maverick_400b_a17b", None), ("whisper_large_v3", 2))
+# 11b: (arch, n_layers cut to or None as published, admission settings)
+SERVE_11 = (("granite_moe_hash", None, (False, True)),
+            ("granite_moe_1b_a400m", None, (False,)),
+            ("rwkv6_1_6b", None, (False,)),
+            ("jamba_v0_1_52b", 8, (False,)),
+            ("llama4_maverick_400b_a17b", 2, (False,)))
+WHISPER = "whisper_large_v3"
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 8, 4, 32
+
+
+def to_cpu(tree):
+    """A copy on the CPU of a dict tree of card tensors."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def mamba_parity(port: Port, device, card: str) -> dict:
+    """11a: jamba's Mamba sublayer alone at the published width (d_model
+    4,096, d_inner 8,192, d_state 16, chunk 64), float32 with TF32 off, over
+    (2, 33, 4,096): output, conv tail and state on the card == on the CPU;
+    on the card a 32-token call then a one-token step from its states ==
+    the whole call."""
+    torch = port.torch
+    cfg = port.get_config("jamba_v0_1_52b")
+    tag = "11a jamba mamba sublayer"
+    p = port.ssm.mamba_init(torch.Generator(device).manual_seed(SEED), cfg.d_model,
+                            d_state=cfg.d_state, expand=cfg.ssm_expand)
+    cpu = to_cpu(p)
+    x = torch.randn((2, 33, cfg.d_model), generator=torch.Generator(device).manual_seed(
+        SEED + 1), device=device)
+    kw = dict(d_state=cfg.d_state, chunk=cfg.ssm_chunk, dtype=torch.float32,
+              return_state=True)
+    err = {}
+    with f32_products(torch):
+        yc, (cc, hc) = port.ssm.mamba_forward(cpu, x.cpu(), **kw)
+        yg, (cg, hg) = port.ssm.mamba_forward(p, x, **kw)
+        err["out"] = agree(port, yg, yc, f"{tag} output")
+        err["conv"] = agree(port, cg, cc, f"{tag} conv tail")
+        err["ssm"] = agree(port, hg, hc, f"{tag} state")
+        y1, (c1, h1) = port.ssm.mamba_forward(p, x[:, :32], **kw)
+        y2, (_, h2) = port.ssm.mamba_forward(p, x[:, 32:], conv_state=c1,
+                                             ssm_state=h1, **kw)
+        err["split_vs_whole"] = agree(port, torch.cat([y1, y2], 1), yg,
+                                      f"{tag} 32 + 1 != whole")
+        err["split_state"] = agree(port, h2, hg, f"{tag} 32 + 1 state != whole")
+    rec = {"config": f"jamba_v0_1_52b Mamba sublayer: d_model {cfg.d_model}, "
+                     f"d_inner {cfg.ssm_expand * cfg.d_model}, d_state {cfg.d_state}",
+           "input": [2, 33, cfg.d_model], "tolerance": PARITY_TOL,
+           "max_abs_err": err, "card": card}
+    print(f"{tag}: card == CPU within {PARITY_TOL}: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+    return rec
+
+
+def whisper_serve(port: Port, device, card: str) -> dict:
+    """11b: `whisper_large_v3` as published (32 + 32 layers, bf16) through
+    its model API (the engine needs `init_caches`, which an enc-dec refuses,
+    as the reference's does): encode (8, 1,500, 1,280) frames, prefill 4
+    tokens, 32 greedy decode steps at batch 8 (finite logits, tokens in the
+    vocabulary, the caches' layout); the encoder's, a prefill's and a
+    decode tick's times, a tick's profile, peak memory."""
+    torch = port.torch
+    cfg = port.get_config(WHISPER)
+    tag = f"11b {WHISPER}"
+    api = port.build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    gen = torch.Generator(device).manual_seed(SEED)
+    params = api.init(gen)
+    frames = torch.randn((WHISPER_B, cfg.encoder_positions, cfg.d_model),
+                         generator=gen, device=device)
+    prompt = torch.randint(0, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT),
+                           generator=gen, device=device, dtype=torch.int32)
+    S = WHISPER_PROMPT + WHISPER_STEPS + 1
+    t0 = time.perf_counter()
+    logits, caches = api.prefill(params, {"frames": frames, "tokens": prompt},
+                                 cache_len=S)
+    c = caches["blocks"]["s0"]
+    L, H, dh = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    check(tuple(c["cross_k"].shape) == (L, WHISPER_B, cfg.encoder_positions, H, dh)
+          and tuple(c["k"].shape) == (L, WHISPER_B, S, cfg.n_kv_heads, dh)
+          and c["cross_v"].dtype == torch.bfloat16,
+          f"{tag}: cache layout {[(k, tuple(v.shape)) for k, v in c.items()]}")
+    toks, finite = [logits.argmax(-1)], [torch.isfinite(logits).all()]
+    for step in range(WHISPER_STEPS):
+        lg, caches = api.decode_step(params, caches, toks[-1][:, None].int(),
+                                     WHISPER_PROMPT + step)
+        toks.append(lg.argmax(-1))
+        finite.append(torch.isfinite(lg).all())
+    out = torch.stack(toks, 1)
+    check(bool(torch.stack(finite).all()) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size,
+          f"{tag}: non-finite logits or a token out of the vocabulary")
+    wall = time.perf_counter() - t0
+    enc_ms = timed(port, lambda: port.encdec.encode(params, cfg, frames), 3)
+    prefill_ms = timed(port, lambda: api.prefill(
+        params, {"frames": frames, "tokens": prompt}, cache_len=S), 3)
+    tok = out[:, -1:].int()
+    step = lambda: api.decode_step(params, caches, tok, S - 1)  # noqa: E731
+    decode_ms = timed(port, step, 10)
+    prof = device_busy(port, step, warm=True)
+    if prof is not None:
+        del prof["names"]
+    decoder = sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+                  if not n.startswith(("enc_", "pos_dec")))
+    cross = sum(c[k].numel() * c[k].element_size() for k in ("cross_k", "cross_v"))
+    rec = {"config": f"{WHISPER} as published: {cfg.n_encoder_layers} + "
+                     f"{cfg.n_layers} layers, d_model {cfg.d_model}, bfloat16",
+           "params": sum(p.numel() for p in params.parameters()),
+           "frames": [WHISPER_B, cfg.encoder_positions, cfg.d_model],
+           "prompt": [WHISPER_B, WHISPER_PROMPT], "decode_steps": WHISPER_STEPS,
+           "wall_s": wall, "tokens_per_s": WHISPER_B * (WHISPER_STEPS + 1) / wall,
+           "encoder_ms": enc_ms, "prefill_ms": prefill_ms, "decode_tick_ms": decode_ms,
+           "decode_read_gb": (decoder + cross) / 1e9,
+           "decode_bound_ms": (decoder + cross) / HBM_BYTES_PER_S * 1e3,
+           "profiles": {"decode tick": prof},
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "held_before_gb": base / 1e9, "card": card}
+    print(f"{tag}: {rec['params']} parameters; encode + prefill + "
+          f"{WHISPER_STEPS} steps in {wall:.3f} s ({rec['tokens_per_s']:.1f} "
+          f"tokens/s); encoder {enc_ms:.3f} ms, prefill {prefill_ms:.3f} ms, "
+          f"decode tick {decode_ms:.3f} ms against a weights-and-cross-K/V "
+          f"read bound of {rec['decode_bound_ms']:.3f} ms; peak memory "
+          f"{rec['peak_memory_gb']:.3f} GB above the {base / 1e9:.3f} GB that "
+          f"earlier phases hold; card {card}")
+    print(f"{tag} profile of one decode tick: {json.dumps(prof)}")
+    del params, caches, frames
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -2403,7 +2707,10 @@ def main() -> int:
         with phase("phase 10a: model parity at full width (2 layers, f32)"):
             parity = model_parity(port, device, card)
         with phase("phase 10b: serving mistral_nemo_12b at its published size"):
-            serving, measure_10b = serve_path(port, device, card)
+            serving = serve_family(port, device, card, SERVE_ARCH, tag="10b",
+                                   n_drawn=25, repeats=SERVE_REPEATS,
+                                   n_new=SERVE_NEW, count_params=True,
+                                   profile_prefill=True)
         serve_counts = port.counts()
         print(f"phase 10 launches: {serve_counts} (checked call by call: "
               f"{port.tally})")
@@ -2413,13 +2720,34 @@ def main() -> int:
               + serve_counts["gf_multilinear"],
               f"phase 10 launches {serve_counts} != {port.tally} multihash launches")
         with phase("phase 10 measurements"):
-            measure_10b()
             prefix_row = prefix_key_row(port, device, card)
         rows.append(prefix_row)
+        # phase 11 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        port.tally = 0
+        with phase("phase 11a: MoE, SSM and enc-dec parity at full width (f32)"):
+            parity11 = {name: model_parity(port, device, card, name, n,
+                                           tag=f"11a {name}")
+                        for name, n in PARITY_11}
+            parity11["jamba mamba sublayer"] = mamba_parity(port, device, card)
+        serving11 = {}
+        for name, n_layers, admissions in SERVE_11:
+            with phase(f"phase 11b: serving {name}"):
+                serving11[name] = serve_family(port, device, card, name, n_layers,
+                                               admissions)
+        with phase(f"phase 11b: {WHISPER} through its model API"):
+            serving11[WHISPER] = whisper_serve(port, device, card)
+        counts11 = port.counts()
+        print(f"phase 11 launches: {counts11} (checked call by call: {port.tally})")
+        check(counts11["multihash"] > 0 and counts11["multihash"] == port.tally
+              and not counts11["gf_multihash"] + counts11["multilinear"]
+              + counts11["gf_multilinear"],
+              f"phase 11 launches {counts11} != {port.tally} multihash launches")
         for rec in kernels:
             rec["phase8_launches"] = shard_launches[rec["name"]]
             rec["phase9_launches"] = battery_launches[rec["name"]]
             rec["phase10_launches"] = serve_counts[rec["name"]]
+            rec["phase11_launches"] = counts11[rec["name"]]
             if rec["name"] == "multihash":
                 rec["serve_prefix"] = {k: prefix_row[k] for k in (
                     "ms", "graph_ms", "plain_ms", "bound_ms", "max_abs_err")}
@@ -2447,7 +2775,9 @@ def main() -> int:
                          "launches": shard_launches},
              "quality": {"battery": battery, "launches": battery_launches},
              "serving": {"parity": parity, "serve": serving,
-                         "launches": serve_counts}},
+                         "launches": serve_counts},
+             "serving_11": {"parity": parity11, "serve": serving11,
+                            "launches": counts11}},
             indent=1))
         (out_dir / "quality_report.json").write_text(json.dumps(quality_report,
                                                                 indent=1))

@@ -51,12 +51,23 @@ def _proj(p, x, dtype):
     return y
 
 
-def qkv_project(params, x, d_head, dtype=torch.bfloat16):
+def q_project(params, x, d_head, dtype=torch.bfloat16):
+    """The query alone (cross-attention reads its keys and values from the
+    encoder's cache)."""
     B, T, _ = x.shape
-    q = _proj(params["wq"], x, dtype).reshape(B, T, -1, d_head)
-    k = _proj(params["wk"], x, dtype).reshape(B, T, -1, d_head)
-    v = _proj(params["wv"], x, dtype).reshape(B, T, -1, d_head)
-    return q, k, v
+    return _proj(params["wq"], x, dtype).reshape(B, T, -1, d_head)
+
+
+def kv_project(params, x, d_head, dtype=torch.bfloat16):
+    """The keys and values alone (the encoder output's, for that cache)."""
+    B, T, _ = x.shape
+    return (_proj(params["wk"], x, dtype).reshape(B, T, -1, d_head),
+            _proj(params["wv"], x, dtype).reshape(B, T, -1, d_head))
+
+
+def qkv_project(params, x, d_head, dtype=torch.bfloat16):
+    return (q_project(params, x, d_head, dtype),
+            *kv_project(params, x, d_head, dtype))
 
 
 def out_project(params, attn_out, dtype=torch.bfloat16):

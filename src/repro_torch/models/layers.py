@@ -241,17 +241,25 @@ def hashed_embedding_init(gen, vocab, d_model, n_buckets, n_hashes=2,
     }
 
 
-def hashed_buckets(params, tokens, n_buckets, n_hashes=2):
-    """(..., n_hashes) int64 bucket ids: ((m2*t + m1) mod 2^64 >> 32) mod
-    n_buckets, in int64 lanes whose multiply and add wrap mod 2^64 (`>>` of
-    int64 is arithmetic, hence the mask after the shift)."""
+def token_hashes(key_hi, key_lo, tokens, modulus, n_hashes):
+    """(..., n_hashes) int64: hash j of each token id is the length-1
+    Multilinear ((m2*t + m1) mod 2^64 >> 32) mod `modulus`, with (m1, m2)
+    the key pair (2j, 2j+1) of the u32 planes `key_hi`/`key_lo`. In int64
+    lanes whose multiply and add wrap mod 2^64 (`>>` of int64 is
+    arithmetic, hence the mask after the shift)."""
     t = tokens.long() & MASK32  # the reference's tokens.astype(uint32)
-    k = (params["const_key_hi"] << 32) | params["const_key_lo"]  # u64 bits
+    k = (key_hi << 32) | key_lo  # u64 bits
     out = []
     for h in range(n_hashes):
         s = k[2 * h + 1] * t + k[2 * h]
-        out.append(((s >> 32) & MASK32) % n_buckets)
+        out.append(((s >> 32) & MASK32) % modulus)
     return torch.stack(out, dim=-1)
+
+
+def hashed_buckets(params, tokens, n_buckets, n_hashes=2):
+    """(..., n_hashes) int64 bucket ids of the hashed embedding."""
+    return token_hashes(params["const_key_hi"], params["const_key_lo"], tokens,
+                        n_buckets, n_hashes)
 
 
 def hashed_embed(params, tokens, n_buckets, n_hashes=2, dtype=torch.bfloat16):

@@ -2,12 +2,14 @@
 
 The port of `repro.models.transformer`. An architecture is a sequence of
 homogeneous *blocks* plus an optional *tail*; each block is a short list of
-sublayer descriptors (`block_spec`, pure Python, every family). This slice
-runs the attention sublayers with a dense FFN:
+sublayer descriptors (attention / mamba / rwkv, each with a dense or MoE
+FFN):
   dense (yi, mistral, phi3, qwen2-vl) .... L blocks x [attn+dense]
   gemma3 (5:1 local:global) .............. 10 blocks x [5 local, 1 global] + 2 tail
-Mamba, RWKV and MoE sublayers and cross-attention raise
-`NotImplementedError` (ROADMAP Queue 1 item 5, the next slice).
+  llama4 / granite (MoE) ................. L blocks x [attn+moe]
+  jamba (1:7 attn:mamba, MoE every 2nd) .. 4 blocks x [8 sublayers]
+  rwkv6 .................................. L blocks x [time_mix+channel_mix]
+(whisper's encoder-decoder lives in encdec.py on the same sublayers.)
 
 Parameters are a `layers.ParamTree` whose paths are the reference's
 pytree paths, with the blocks as a list (`blocks.3.s0.attn.wq.w` is the
@@ -26,11 +28,9 @@ import torch
 
 from ..core.device import resolve_device
 from . import attention as attn
-from . import layers
+from . import layers, ssm
+from . import moe as moe_mod
 from .layers import ParamTree
-
-NEXT_SLICE = ("not ported yet: models/moe.py, models/ssm.py and "
-              "models/encdec.py are the next slice (ROADMAP Queue 1 item 5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,19 +86,6 @@ def _check_period(cfg, per: int) -> None:
                          f"multiple of the block period {per}")
 
 
-def check_ported(cfg) -> None:
-    """Raise `NotImplementedError` unless every sublayer of `cfg` is one
-    this slice runs (attention with a dense FFN); `build`, `init_lm`,
-    `init_caches` and `params_from_jax` call it."""
-    _, subs, tail = block_spec(cfg)
-    for desc in subs + tail:
-        if desc.kind != "attn" or desc.ffn != "dense" or desc.cross:
-            what = f"{desc.kind} sublayer" + (f" with a {desc.ffn} FFN" if desc.ffn else "")
-            raise NotImplementedError(
-                f"{cfg.name}: {what}{' and cross-attention' if desc.cross else ''}"
-                f": {NEXT_SLICE}")
-
-
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -118,14 +105,35 @@ def _norm_apply(cfg, p, x):
 
 
 def init_sublayer(gen, cfg, desc: SubDesc, dtype):
-    return {
-        "ln1": _norm_init(cfg, gen),
-        "attn": attn.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                    cfg.head_dim, bias=cfg.attn_bias, dtype=dtype),
-        "ln2": _norm_init(cfg, gen),
-        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.act,
-                               bias=cfg.mlp_bias, dtype=dtype),
-    }
+    p = {"ln1": _norm_init(cfg, gen)}
+    if desc.kind == "attn":
+        p["attn"] = attn.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.head_dim, bias=cfg.attn_bias, dtype=dtype)
+        if desc.cross:
+            p["cross_ln"] = _norm_init(cfg, gen)
+            p["cross"] = attn.attention_init(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                bias=cfg.attn_bias, dtype=dtype)
+    elif desc.kind == "mamba":
+        p["mamba"] = ssm.mamba_init(gen, cfg.d_model, d_state=cfg.d_state,
+                                    expand=cfg.ssm_expand, dtype=dtype)
+    elif desc.kind == "rwkv":
+        p["rwkv"] = ssm.rwkv6_init(gen, cfg.d_model, cfg.n_heads, cfg.d_ff,
+                                   dtype=dtype)
+        p["ln2"] = _norm_init(cfg, gen)
+        p["rwkv_cm"] = ssm.rwkv6_channel_mix_init(gen, cfg.d_model, cfg.d_ff,
+                                                  dtype=dtype)
+        return p
+    if desc.ffn == "dense":
+        p["ln2"] = _norm_init(cfg, gen)
+        p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.act,
+                                   bias=cfg.mlp_bias, dtype=dtype)
+    elif desc.ffn == "moe":
+        p["ln2"] = _norm_init(cfg, gen)
+        p["moe"] = moe_mod.moe_init(
+            gen, cfg.d_model, cfg.d_ff, cfg.n_experts, router=cfg.router,
+            shared_expert=cfg.shared_expert, act=cfg.act, dtype=dtype)
+    return p
 
 
 def init_block(gen, cfg, subs, dtype):
@@ -134,8 +142,7 @@ def init_block(gen, cfg, subs, dtype):
 
 def init_lm(gen: torch.Generator, cfg) -> ParamTree:
     """Weights drawn from `gen` on its device, matrices held in the compute
-    dtype (norm scales in f32)."""
-    check_ported(cfg)
+    dtype (norm scales and the leaves the reference uses uncast in f32)."""
     dtype = compute_dtype(cfg)
     n_blocks, subs, tail = block_spec(cfg)
     params = {}
@@ -214,30 +221,78 @@ def _qk_norm(cfg, q, k):
     return _n(q), _n(k)
 
 
+def _write(cache, **new):
+    """Copy new state tensors into the cache's views, in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+
+
 def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
-                   dtype=torch.bfloat16):
+                   token_ids=None, moe_groups=1, dtype=torch.bfloat16):
     """x: (B, T, D). mode: 'train' | 'prefill' | 'decode'. `cache` (this
-    sublayer's, a view) is written in place. Returns x."""
+    sublayer's, a view) is written in place. Returns (x, aux): aux is the
+    MoE balance loss of an MoE FFN, else None."""
     T = x.shape[1]
+    aux = None
     h = _norm_apply(cfg, p["ln1"], x)
-    q, k, v = attn.qkv_project(p["attn"], h, cfg.head_dim, dtype)
-    positions = _positions_for(cfg, T, pos_offset,
-                               cfg.vision_prefix if mode != "decode" else 0, x.device)
-    q = _apply_rope_q_or_k(cfg, q, positions, desc.theta)
-    k = _apply_rope_q_or_k(cfg, k, positions, desc.theta)
-    q, k = _qk_norm(cfg, q, k)
-    if mode == "decode":
-        attn.cache_insert(cache, k, v, pos_offset)
-        o = attn.decode_attend(cache, q, pos_offset, window=desc.window)
-    else:
-        o = attn.flash_attention(q, k, v, causal=desc.causal, window=desc.window,
-                                 chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
-        if mode == "prefill" and cache is not None:
-            fill = attn.ring_prefill if attn.is_ring(cache) else attn.linear_prefill
-            fill(cache, k, v, T)
-    x = x + attn.out_project(p["attn"], o, dtype)
-    h = _norm_apply(cfg, p["ln2"], x)
-    return x + layers.mlp(p["mlp"], h, act=cfg.act, dtype=dtype)
+    if desc.kind == "attn":
+        q, k, v = attn.qkv_project(p["attn"], h, cfg.head_dim, dtype)
+        positions = _positions_for(cfg, T, pos_offset,
+                                   cfg.vision_prefix if mode != "decode" else 0, x.device)
+        q = _apply_rope_q_or_k(cfg, q, positions, desc.theta)
+        k = _apply_rope_q_or_k(cfg, k, positions, desc.theta)
+        q, k = _qk_norm(cfg, q, k)
+        if mode == "decode":
+            attn.cache_insert(cache, k, v, pos_offset)
+            o = attn.decode_attend(cache, q, pos_offset, window=desc.window)
+        else:
+            o = attn.flash_attention(q, k, v, causal=desc.causal, window=desc.window,
+                                     chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+            if mode == "prefill" and cache is not None:
+                fill = attn.ring_prefill if attn.is_ring(cache) else attn.linear_prefill
+                fill(cache, k, v, T)
+        x = x + attn.out_project(p["attn"], o, dtype)
+        if desc.cross:  # whisper's decoder: K/V of the encoder output, cached
+            hc = _norm_apply(cfg, p["cross_ln"], x)
+            qc = attn.q_project(p["cross"], hc, cfg.head_dim, dtype)
+            oc = attn.flash_attention(qc, cache["cross_k"], cache["cross_v"],
+                                      causal=False, chunk_q=cfg.attn_chunk_q,
+                                      chunk_k=cfg.attn_chunk_k)
+            x = x + attn.out_project(p["cross"], oc, dtype)
+    elif desc.kind == "mamba":
+        c = cache if cache is not None else {}
+        o, (conv_s, ssm_s) = ssm.mamba_forward(
+            p["mamba"], h, d_state=cfg.d_state, chunk=cfg.ssm_chunk,
+            conv_state=c.get("conv"), ssm_state=c.get("ssm"), dtype=dtype,
+            return_state=True)
+        if cache is not None:
+            _write(cache, conv=conv_s, ssm=ssm_s)
+        x = x + o
+    else:  # rwkv: time mix and channel mix, no FFN
+        c = cache if cache is not None else {}
+        o, (wkv, sh_tm) = ssm.rwkv6_time_mix(
+            p["rwkv"], h, cfg.n_heads, chunk=cfg.rwkv_chunk, state=c.get("wkv"),
+            shift_state=c.get("shift_tm"), dtype=dtype, return_state=True)
+        x = x + o
+        h2 = _norm_apply(cfg, p["ln2"], x)
+        o2, sh_cm = ssm.rwkv6_channel_mix(p["rwkv_cm"], h2, shift_state=c.get("shift_cm"),
+                                          dtype=dtype, return_state=True)
+        if cache is not None:
+            _write(cache, wkv=wkv, shift_tm=sh_tm, shift_cm=sh_cm)
+        return x + o2, aux
+
+    if desc.ffn == "dense":
+        h = _norm_apply(cfg, p["ln2"], x)
+        x = x + layers.mlp(p["mlp"], h, act=cfg.act, dtype=dtype)
+    elif desc.ffn == "moe":
+        h = _norm_apply(cfg, p["ln2"], x)
+        o, moe_aux = moe_mod.moe_apply(
+            p["moe"], h, n_experts=cfg.n_experts, k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor, groups=moe_groups,
+            router=cfg.router, token_ids=token_ids, act=cfg.act, dtype=dtype)
+        aux = moe_aux["balance_loss"]
+        x = x + o
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -245,16 +300,30 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
 # ---------------------------------------------------------------------------
 
 def init_sublayer_cache(cfg, desc: SubDesc, B, S, dtype=torch.bfloat16, device=None):
-    if desc.window is not None and S > desc.window:
-        return attn.make_ring_cache(B, desc.window, cfg.n_kv_heads, cfg.head_dim,
-                                    dtype, device)
-    return attn.make_linear_cache(B, S, cfg.n_kv_heads, cfg.head_dim, dtype, device)
+    if desc.kind == "attn":
+        if desc.window is not None and S > desc.window:
+            return attn.make_ring_cache(B, desc.window, cfg.n_kv_heads, cfg.head_dim,
+                                        dtype, device)
+        return attn.make_linear_cache(B, S, cfg.n_kv_heads, cfg.head_dim, dtype,
+                                      device)
+    dev = resolve_device(device)
+    f32 = torch.float32
+    if desc.kind == "mamba":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        d_conv = 4
+        return {"conv": torch.zeros(B, d_conv - 1, d_inner, dtype=dtype, device=dev),
+                "ssm": torch.zeros(B, d_inner, cfg.d_state, dtype=f32, device=dev)}
+    if desc.kind == "rwkv":
+        dk = cfg.d_model // cfg.n_heads
+        return {"wkv": torch.zeros(B, cfg.n_heads, dk, dk, dtype=f32, device=dev),
+                "shift_tm": torch.zeros(B, cfg.d_model, dtype=dtype, device=dev),
+                "shift_cm": torch.zeros(B, cfg.d_model, dtype=dtype, device=dev)}
+    raise ValueError(desc.kind)
 
 
 def init_caches(cfg, B, S, dtype=None, device=None):
     """Cache tree in the reference's layout: leaves under 'blocks' stacked
     (n_blocks, ...), 'tail' leaves unstacked."""
-    check_ported(cfg)
     dtype = dtype or compute_dtype(cfg)
     device = resolve_device(device)
     n_blocks, subs, tail = block_spec(cfg)
@@ -275,29 +344,36 @@ def init_caches(cfg, B, S, dtype=None, device=None):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
-            patch_embeds=None):
+            patch_embeds=None, moe_groups=1):
     """tokens: (B, T) integer tensor. Returns (hidden (B,T,D), aux, caches):
-    aux is the MoE balance term, 0 for the dense families; `caches` are
-    the ones given, written in place (None in 'train' mode)."""
+    aux is the sum of the MoE layers' balance losses (0 without MoE);
+    `caches` are the ones given, written in place (None in 'train' mode).
+    The hash router reads the tokens as its token ids (the reference
+    passes them to every sublayer, zeros for the other routers)."""
     dtype = compute_dtype(cfg)
     _, subs, tail = block_spec(cfg)
     x = embed_tokens(params, cfg, tokens, dtype)
     if patch_embeds is not None:
         P = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(dtype), x[:, P:]], dim=1)
+    kw = dict(mode=mode, pos_offset=pos_offset, moe_groups=moe_groups, dtype=dtype,
+              token_ids=tokens if cfg.moe and cfg.router == "hash" else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(p, x, desc, cache):
+        x, a = apply_sublayer(p, x, desc, cfg, cache=cache, **kw)
+        return x, (aux if a is None else aux + a)
 
     for b, p_block in enumerate(params["blocks"]):
         for i, desc in enumerate(subs):
             cache = None if caches is None else {
                 k: t[b] for k, t in caches["blocks"][f"s{i}"].items()}  # views
-            x = apply_sublayer(p_block[f"s{i}"], x, desc, cfg, mode=mode,
-                               pos_offset=pos_offset, cache=cache, dtype=dtype)
+            x, aux = run(p_block[f"s{i}"], x, desc, cache)
     for i, desc in enumerate(tail):
         cache = None if caches is None else caches["tail"][f"s{i}"]
-        x = apply_sublayer(params["tail"][f"s{i}"], x, desc, cfg, mode=mode,
-                           pos_offset=pos_offset, cache=cache, dtype=dtype)
+        x, aux = run(params["tail"][f"s{i}"], x, desc, cache)
     x = _norm_apply(cfg, params["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+    return x, aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -323,10 +399,12 @@ def chunked_ce_loss(params, cfg, hidden, labels, mask=None, z_loss=1e-4):
     return total / (mask.sum().clamp_min(1) if mask is not None else max(B * T, 1))
 
 
-def lm_loss(params, cfg, batch, balance_coef=0.01):
-    """Forward loss (no gradient in this slice)."""
+def lm_loss(params, cfg, batch, moe_groups=1, balance_coef=0.01):
+    """Forward loss, CE plus `balance_coef` times the MoE balance loss (no
+    gradient in this slice)."""
     hidden, aux, _ = forward(params, cfg, batch["tokens"], mode="train",
-                             patch_embeds=batch.get("patch_embeds"))
+                             patch_embeds=batch.get("patch_embeds"),
+                             moe_groups=moe_groups)
     ce = chunked_ce_loss(params, cfg, hidden, batch["labels"], batch.get("mask"))
     return ce + balance_coef * aux, {"ce": ce, "balance": aux}
 
@@ -335,20 +413,22 @@ def lm_loss(params, cfg, batch, balance_coef=0.01):
 # serving entry points
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg, tokens, cache_len=None, patch_embeds=None):
+def prefill(params, cfg, tokens, cache_len=None, moe_groups=1, patch_embeds=None):
     B, T = tokens.shape
     caches = init_caches(cfg, B, cache_len or T, device=tokens.device)
     hidden, _, caches = forward(params, cfg, tokens, mode="prefill",
-                                caches=caches, patch_embeds=patch_embeds)
+                                caches=caches, patch_embeds=patch_embeds,
+                                moe_groups=moe_groups)
     W = unembed_matrix(params, cfg, hidden.dtype)
     logits = (hidden[:, -1:] @ W).float()
     return logits[:, 0], caches
 
 
-def decode_step(params, cfg, caches, token, pos: int):
+def decode_step(params, cfg, caches, token, pos: int, moe_groups=1):
     """token: (B, 1) integer tensor; pos: the absolute position (an int).
     Returns (logits (B, V), caches), the caches written in place."""
     hidden, _, caches = forward(params, cfg, token, mode="decode",
-                                pos_offset=int(pos), caches=caches)
+                                pos_offset=int(pos), caches=caches,
+                                moe_groups=moe_groups)
     W = unembed_matrix(params, cfg, hidden.dtype)
     return (hidden[:, -1] @ W).float(), caches

@@ -7,6 +7,11 @@ tokens, the stats, the prompt keys (host, batched-device and tree paths)
 and the admission verdicts must be equal. Greedy tokens are argmaxes of
 logits that agree to ~1e-6 (tests/test_torch_models.py), far inside the
 gaps between the top logits of these seeded prompts.
+
+The MoE and state-space families (granite_smoke_hash, rwkv6_smoke,
+jamba_smoke) are served alike too, and every leaf of a spliced cache --
+attention K/V, Mamba's conv tail and state, RWKV's wkv and shift states --
+equals the reference's.
 """
 import dataclasses
 
@@ -232,3 +237,46 @@ def test_engine_refuses_what_it_cannot_serve(mistral):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(tapi, tp)  # the default device is the card
+
+
+SERVED_FAMILIES = ["granite_moe_hash", "rwkv6_1_6b", "jamba_v0_1_52b"]
+
+
+@pytest.fixture(scope="module", params=SERVED_FAMILIES)
+def family(request):
+    return pair(request.param)
+
+
+def test_engine_serves_the_new_families_like_the_reference(family):
+    """Tokens, stats, slot positions and prompt keys of two waves with a
+    repeat (a prefix hit); the hash router reads each slot's current token
+    at decode."""
+    cfg = family[0]
+    ps = prompts(cfg.vocab_size, [3, 11, 6, 9, 5], 9, repeats=(1,))
+    j, t = serve_both(family, ps, max_seq=32, n_slots=2)
+    assert_served_alike(j, t)
+    assert t[0].stats["prefix_hits"] == 1
+    assert set(t[0]._prefix_logit_cache) == set(j[0]._prefix_logit_cache)
+
+
+def test_splice_copies_every_state_leaf(family):
+    """`_assign` into slot 1 writes every cache leaf's slot-1 row as the
+    reference's engine does (SSM states included, all of them under
+    'blocks' with the slot on axis 1), and leaves slot 0 at zero."""
+    cfg = family[0]
+    p = prompts(cfg.vocab_size, [7], 10)[0]
+    je, te = engines(family, max_seq=16, n_slots=2)
+    je._assign(JRequest(0, p.copy()), 1)
+    te._assign(Request(0, p.copy()), 1)
+    flat = jax.tree_util.tree_leaves_with_path(je.caches)
+    for path, leaf in flat:
+        node = te.caches
+        for key in path:
+            node = node[key.key]
+        assert tuple(node.shape) == leaf.shape, path
+        np.testing.assert_allclose(node.float().numpy(), np.asarray(leaf, np.float32),
+                                   rtol=1e-4, atol=1e-4, err_msg=str(path))
+        assert path[0].key == "blocks" and node.shape[1] == 2
+        assert node[:, 1].abs().sum() > 0 and node[:, 0].abs().sum() == 0, path
+    kinds = {k.key for path, _ in flat for k in path[-1:]}
+    assert kinds & {"conv", "ssm", "wkv", "shift_tm", "shift_cm", "k"}
