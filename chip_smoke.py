@@ -222,12 +222,46 @@ check exits non-zero. The last line is the JSON device record.
        peak memory above what earlier phases hold (10b's model is freed
        first), a tick's device operations and idle share
        (torch.profiler), whisper's encoder.
+
+12. training (`train/`, the backward passes of `models/`), a path of its
+    own after phase 11 (counts set to 0 again; every kernel-1 launch, the
+    trainer checkpoints' leaf fingerprints, predicted and checked):
+    a. parity in float32 with TF32 off: one train step on the card == the
+       same step on the CPU from the same state and batch, for
+       `granite_moe_hash` at full width with n_layers 24 -> 2 (AdamW) and
+       `llama4_smoke` whole (adafactor): the loss, the largest gradient
+       error of every leaf (relative to its largest magnitude) and the
+       parameters after the step, each printed beside its bound; every
+       parameter element that moved apart past 1e-5 must have its cause
+       (gradients of opposite signs, or a clipped gradient within AdamW's
+       eps of 0: `moved_apart`);
+    b. `granite_moe_hash` as published (24 layers, 1.335e9 parameters,
+       bf16 compute, f32 masters, AdamW, remat as the config sets it) on
+       batches of 8 x 1,024 tokens packed by `HashPipeline` from
+       `data.synthetic.corpus` (vocabulary 49,155): `make_train_step`, 2
+       warm-up and 5 timed steps; ms a step, tokens/s, peak memory, a
+       step's device operations and idle share (torch.profiler), the first
+       and last loss (finite; the first near ln 49,155), and a step's bound
+       (the larger of its FLOPs over 989 TFLOP/s and its bytes over
+       3.35 TB/s), and beside it the bound of the least work (no
+       recompute, the routed expert rows only, the causal half);
+    c. the `Trainer` at full width with n_layers 24 -> 2: 12 steps,
+       `checkpoint_every=4`, a `SimulatedFault` at step 6 (it resumes from
+       step 4 and completes), the last checkpoint restored equal to the
+       final state, the kernel-1 launches of its saves, verifies and
+       restores equal to the prediction, every fingerprint of the final
+       checkpoint recomputed without the kernel (each leaf's by the
+       engine's plain version on the card, the paths' and the root by
+       `digest_host`), then `ServeEngine` serves 4 requests from the
+       trained parameters.
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -322,6 +356,8 @@ class Port:
         from repro_torch.core import baselines
         from repro_torch.models import build, encdec, ssm, transformer
         from repro_torch.serve import Request, ServeEngine
+        from repro_torch import train
+        from repro_torch.data.synthetic import corpus
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
         self.gf, self.keys, self.streaming = gf, keys, streaming
@@ -343,6 +379,7 @@ class Port:
         self.transformer, self.Request, self.ServeEngine = (transformer, Request,
                                                             ServeEngine)
         self.encdec, self.ssm = encdec, ssm
+        self.train, self.corpus = train, corpus
         self.tally = 0  # engine launches `launched` has checked
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
@@ -2558,6 +2595,406 @@ def whisper_serve(port: Port, device, card: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 12: training
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite_moe_hash"
+# 12a: (arch, n_layers cut to; None runs its SMOKE config whole)
+PARITY_12 = (("granite_moe_hash", 2), ("llama4_maverick_400b_a17b", None))
+PARITY_12_LR = 1e-3
+# 12a bounds: loss rel; a gradient leaf's max abs err over its largest
+# magnitude (+1e-7 for gradients that are 0 in exact arithmetic); the
+# parameters after a step (an element whose gradient is within rounding
+# of 0 may take AdamW's +-lr step the other way: 2 lr). An element that
+# differs past MOVED_12 must have a cause (`train_parity`); as a backstop,
+# at most one in FLIPS_12 of the parameters (at least 64) may.
+LOSS_TOL_12, GRAD_TOL_12, MOVED_12, FLIPS_12 = 1e-5, 1e-4, 1e-5, 10**5
+# 12b/12c: batches of B x T tokens from the synthetic corpus
+TRAIN_B, TRAIN_T, TRAIN_WARM, TRAIN_TIMED = 8, 1024, 2, 5
+TRAIN_SCHEDULE = dict(peak_lr=3e-4, warmup_steps=2, decay_steps=100)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_FLOPS_PER_S = 989e12
+# 12c: the trainer's run
+SYSTEM_STEPS, SYSTEM_EVERY, SYSTEM_FAULT, SYSTEM_REQUESTS = 12, 4, 6, 4
+
+
+def train_batches(port, device, cfg, n: int, B: int = TRAIN_B, T: int = TRAIN_T):
+    """n batches of B x T tokens packed by `HashPipeline` (on the card) from
+    `data.synthetic.corpus` over the config's vocabulary. The pipeline's
+    own engine launches (its split hash of each document) are counted
+    into `port.tally`."""
+    c0 = port.counts()["multihash"]
+    pipe = port.HashPipeline(port.PipelineConfig(seq_len=T, batch_size=B, eval_pct=0,
+                                                 dedup=False), device=device)
+    out = []
+    for b in pipe.pack(port.corpus(seed=SEED, n_docs=50 * n * B, vocab=cfg.vocab_size,
+                                   dup_rate=0.0)):
+        out.append(b)
+        if len(out) == n:
+            port.tally += port.counts()["multihash"] - c0
+            return out
+    raise SmokeFailure(f"the corpus packed {len(out)} of {n} batches")
+
+
+def moved_apart(port, cfg, a: dict, b: dict, m_a: dict, m_b: dict) -> dict:
+    """The parameter elements of two states after one step from one state
+    (a on the CPU, b on the card; reference paths -> tensors) that differ
+    past MOVED_12, and whether each has its cause. AdamW's first update
+    of an element is lr g/(|g| + eps) of its clipped gradient g, which the
+    first moment holds as m = (1 - b1) g. For two gradients of one sign
+    the updates differ by less than lr eps/(min |g| + eps), so past
+    MOVED_12 only if the smaller |g| is under eps (lr/MOVED_12 - 1):
+    within rounding of 0. Otherwise the signs differ. Adafactor's update
+    is continuous in g, and no element of it has a cause."""
+    torch = port.torch
+    hyper = inspect.signature(port.train.adamw).parameters
+    eps, b1 = hyper["eps"].default, hyper["b1"].default
+    g_limit = eps * (PARITY_12_LR / MOVED_12 - 1)
+    out = {"moved": 0, "sign_flips": 0, "unexplained": 0, "max_abs": 0.0,
+           "largest_g": 0.0, "g_limit": g_limit, "largest_g_over_leaf_max": 0.0}
+    for path, x in a.items():
+        d = (b[path].cpu() - x).abs()
+        out["max_abs"] = max(out["max_abs"], float(d.max()))
+        moved = d > MOVED_12
+        n = int(moved.sum())
+        if not n:
+            continue
+        out["moved"] += n
+        if cfg.optimizer != "adamw":
+            out["unexplained"] += n
+            continue
+        ga, gb = m_a[path] / (1 - b1), m_b[path].cpu() / (1 - b1)
+        ga_m, gb_m = ga[moved], gb[moved]
+        flip = torch.sign(ga_m) != torch.sign(gb_m)
+        small = torch.minimum(ga_m.abs(), gb_m.abs())
+        out["sign_flips"] += int(flip.sum())
+        out["unexplained"] += int((~flip & (small >= g_limit)).sum())
+        if not flip.all():
+            out["largest_g"] = max(out["largest_g"], float(small[~flip].max()))
+        out["largest_g_over_leaf_max"] = max(
+            out["largest_g_over_leaf_max"], float(ga_m.abs().max() / ga.abs().max()))
+    return out
+
+
+def train_parity(port: Port, device, card: str, name: str, n_layers) -> dict:
+    """12a: one train step on the card == the same step on the CPU, float32
+    with TF32 off, from one seeded state drawn on the card and its copy:
+    the loss, every gradient leaf and the parameters after the step, each
+    error beside its bound; every element that moved apart has its cause
+    (`moved_apart`)."""
+    import dataclasses
+
+    torch = port.torch
+    if n_layers is None:
+        cfg = dataclasses.replace(port.get_config(name, smoke=True), dtype="float32")
+        tag, T = f"12a {cfg.name} (the SMOKE config of {name}, whole)", 16
+    else:
+        full = port.get_config(name)
+        cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
+        tag, T = (f"12a {name} at full width, n_layers {full.n_layers} -> "
+                  f"{n_layers}"), 64
+    api = port.build_model(cfg)
+    opt = port.train.make_optimizer(cfg.optimizer, port.train.Schedule(
+        peak_lr=PARITY_12_LR, warmup_steps=0))
+    on_card = port.train.init_state(api, opt, torch.Generator(device).manual_seed(SEED))
+    cpu = port.train.train_state.copy_to(on_card, "cpu")
+    g = np.random.default_rng(SEED + 12)
+    batch = {"tokens": g.integers(0, cfg.vocab_size, (2, T)).astype(np.int32),
+             "labels": g.integers(0, cfg.vocab_size, (2, T)).astype(np.int32)}
+    step = port.train.make_train_step(api, opt)
+    with f32_products(torch):
+        (lc, gc), (lg, gg) = (port.train.step.reference_grads(api, s.params, batch)
+                              for s in (cpu, on_card))
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        grad_err, worst = 0.0, ""
+        for path, a in gc.items():
+            err = float((gg[path].cpu() - a).abs().max())
+            rel = err / (float(a.abs().max()) + 1e-7 / GRAD_TOL_12)
+            if rel > grad_err:
+                grad_err, worst = rel, path
+        del gc, gg
+        cpu, mc = step(cpu, batch)
+        on_card, mg = step(on_card, batch)
+        torch.cuda.synchronize()
+    after = [port.train.train_state.to_reference(s) for s in (cpu, on_card)]
+    params = [dict(port.flatten(s.params)) for s in after]
+    floats = [{p: x for p, x in ps.items() if x.is_floating_point()} for ps in params]
+    keys_equal = all(torch.equal(x, params[1][p].cpu())
+                     for p, x in params[0].items() if not x.is_floating_point())
+    m = [dict(port.flatten(s.opt_state["m"])) if "m" in s.opt_state else {}
+         for s in after]
+    moved = moved_apart(port, cfg, *floats, *m)
+    n_params = sum(p.numel() for p in cpu.params.parameters())
+    bounds = {"loss_rel": LOSS_TOL_12, "grad_rel": GRAD_TOL_12,
+              "param_abs": 2 * PARITY_12_LR + 1e-6, "unexplained": 0,
+              "flips": max(64, n_params // FLIPS_12)}
+    errs = {"loss_rel": loss_err, "grad_rel": grad_err, "param_abs": moved["max_abs"],
+            "unexplained": moved["unexplained"], "flips": moved["moved"]}
+    print(f"{tag}: " + ", ".join(f"{k} {errs[k]:.3e} (bound {bounds[k]:.3e})"
+                                 for k in errs)
+          + f"; worst gradient leaf {worst}; key planes equal: {keys_equal}; "
+          f"{moved['moved']} elements past {MOVED_12}: {moved['sign_flips']} of "
+          f"them with gradients of opposite signs, the others' smaller clipped "
+          f"|g| at most {moved['largest_g']:.3e} (limit {moved['g_limit']:.3e}); "
+          f"their largest |g| over their leaf's largest "
+          f"{moved['largest_g_over_leaf_max']:.3e}")
+    check(all(errs[k] <= bounds[k] for k in errs) and keys_equal,
+          f"{tag}: past a bound: {errs} against {bounds}")
+    rec = {"config": tag, "optimizer": cfg.optimizer, "batch": [2, T],
+           "loss_card": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
+           "errors": errs, "bounds": bounds, "moved_apart": moved,
+           "worst_grad_leaf": worst, "params": n_params, "card": card}
+    del on_card, cpu, after, params, floats, m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def step_work(cfg, n_params: int, tokens: int, B: int, T: int) -> tuple:
+    """(FLOPs, bytes, least FLOPs) of one remat train step of an MoE LM
+    whose blocks are attention + a routed FFN: 8 FLOPs a multiply-add (2
+    forward, 2 recomputed, 4 backward) on the projections and the tied
+    unembedding for every token, on the experts for the E x C rows the
+    reference's dispatch computes, and on the dense (B, T, T) attention
+    scores and values the flash loop computes; bytes: AdamW's 28 a
+    parameter (read p, g, m, v; write p, m, v in f32) and the f32 masters
+    read 3 times (forward, recompute, backward). The least FLOPs count what
+    the step's function needs: 6 a multiply-add (no recompute), the
+    tokens x top-k routed rows, the causal half of the scores."""
+    C = max(cfg.experts_per_token, int(math.ceil(  # one dispatch group
+        tokens * cfg.experts_per_token / cfg.n_experts * cfg.capacity_factor)))
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = D * (2 * H * dh + 2 * Hkv * dh)
+    expert = 3 * D * cfg.d_ff
+
+    def macs(rows, scores):
+        return cfg.n_layers * (tokens * attn + rows * expert + scores) \
+            + tokens * D * cfg.vocab_size
+
+    full = 2 * B * T * T * H * dh
+    return (8 * macs(cfg.n_experts * C, full), (28 + 12) * n_params,
+            6 * macs(tokens * cfg.experts_per_token, full // 2))
+
+
+def train_full(port: Port, device, card: str) -> dict:
+    """12b: `granite_moe_hash` as published, trained by `make_train_step`
+    on HashPipeline batches: 2 warm-up and 5 timed steps; ms a step,
+    tokens/s, peak memory, a step's profile, the losses, the bound."""
+    torch = port.torch
+    cfg = port.get_config(TRAIN_ARCH)
+    tag = f"12b {TRAIN_ARCH}"
+    api = port.build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    opt = port.train.make_optimizer(cfg.optimizer, port.train.Schedule(**TRAIN_SCHEDULE))
+    t0 = time.perf_counter()
+    box = [port.train.init_state(api, opt, torch.Generator(device).manual_seed(SEED))]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in box[0].params.parameters())
+    state_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    batches = train_batches(port, device, cfg, TRAIN_WARM + TRAIN_TIMED + 1)
+    step = port.train.make_train_step(api, opt)
+    losses = []
+
+    def one(b):
+        box[0], m = step(box[0], b)
+        losses.append(m["loss"])
+
+    for b in batches[:TRAIN_WARM]:
+        one(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED]:
+        one(b)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED
+    prof = device_busy(port, lambda: one(batches[-1]))
+    loss = [float(v) for v in losses]
+    tokens = TRAIN_B * TRAIN_T
+    check(all(math.isfinite(v) for v in loss), f"{tag}: non-finite loss {loss}")
+    check(abs(loss[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"{tag}: first loss {loss[0]:.4f} far from ln V = "
+          f"{math.log(cfg.vocab_size):.4f}")
+    flops, nbytes, least = step_work(cfg, n_params, tokens, TRAIN_B, TRAIN_T)
+    f_ms, b_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    least_ms = max(least / BF16_FLOPS_PER_S * 1e3, b_ms)
+    if prof is not None:
+        del prof["names"]
+    rec = {"config": f"{TRAIN_ARCH} as published: {cfg.n_layers} layers, d_model "
+                     f"{cfg.d_model}, {cfg.n_experts} experts top-"
+                     f"{cfg.experts_per_token}, bf16 compute, f32 masters, "
+                     f"{cfg.optimizer}, remat {cfg.remat}",
+           "params": n_params, "param_count": cfg.param_count(),
+           "state_gb": state_gb, "init_s": init_s, "batch": [TRAIN_B, TRAIN_T],
+           "step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "held_before_gb": base / 1e9, "losses": loss,
+           "flops": flops, "bytes": nbytes, "flops_ms": f_ms, "bytes_ms": b_ms,
+           "bound_ms": max(f_ms, b_ms),
+           "bound_by": "operations" if f_ms >= b_ms else "bytes",
+           "least_flops": least, "least_bound_ms": least_ms,
+           "profile": prof, "card": card}
+    print(f"{tag}: {rec['config']}; {n_params} parameters ({state_gb:.3f} GB of "
+          f"params + AdamW state) drawn in {init_s:.3f} s; {ms:.3f} ms a step of "
+          f"{tokens} tokens ({rec['tokens_per_s']:.1f} tokens/s) against a bound "
+          f"of {rec['bound_ms']:.3f} ms ({flops / 1e12:.3f} TFLOP over 989 "
+          f"TFLOP/s: {f_ms:.3f} ms; {nbytes / 1e9:.3f} GB over 3.35 TB/s: "
+          f"{b_ms:.3f} ms; without the recompute, the unfilled expert rows and "
+          f"the causal upper half: {least / 1e12:.3f} TFLOP, a bound of "
+          f"{least_ms:.3f} ms); peak memory {rec['peak_memory_gb']:.3f} GB above the "
+          f"{base / 1e9:.3f} GB that earlier phases hold; losses {loss}; card {card}")
+    if prof is not None:
+        print(f"{tag}: one step's device operations {prof['ops']}, busy "
+              f"{prof['kernel_ms'] + prof['copy_ms']:.3f} of {prof['wall_ms']:.3f} ms "
+              f"(idle share {prof['idle_share']:.4f}); top {json.dumps(prof['top_ms'])}")
+    del box, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def plain_checkpoint_check(port, th, step_dir: str, device) -> dict:
+    """Every fingerprint in a checkpoint's manifest recomputed from the
+    bytes on disk without the kernel: each leaf's leaf digests by the
+    engine's plain version on the card (then the tree's fold), the path
+    fingerprints and the root by the tree's numpy twin `digest_host`."""
+    torch = port.torch
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    lw, family = th.spec.leaf_words, th.hasher.spec.family
+    check(not th.hasher.spec.variable_length, f"{th}: a variable-length leaf spec")
+    pairs, leaves, n_bytes = [], 0, 0
+    t0 = time.perf_counter()
+    with np.load(os.path.join(step_dir, "arrays.npz")) as data:
+        for path, meta in manifest["leaves"].items():
+            u8 = torch.from_numpy(np.ascontiguousarray(data[meta["key"]]).reshape(-1)
+                                  .view(np.uint8)).to(device)
+            n = u8.shape[0]
+            L = max(1, -(-n // (4 * lw)))
+            rows = torch.cat([u8, u8.new_zeros(4 * L * lw - n)]).view(torch.int32) \
+                .view(L, lw)
+            lens = torch.full((L,), -(lw + 1), dtype=torch.int32, device=device)
+            out = port.plain(family, rows, th.hasher.keys, lens, width=lw)
+            nodes = (out[:, 0, 0] << 32) | out[:, 0, 1]
+            fp = th._int(th._fold_impl(nodes, L, n))
+            check(f"{fp:016x}" == meta["fingerprint"],
+                  f"{step_dir}: leaf {path} fingerprint {meta['fingerprint']} != "
+                  f"{fp:016x} from the plain version")
+            pairs.append((path, fp))
+            leaves, n_bytes = leaves + 1, n_bytes + n
+            del u8, rows, out, nodes
+    words = np.zeros(4 * len(pairs), np.uint32)
+    for i, (path, fp) in enumerate(pairs):
+        raw = path.encode()
+        buf = np.zeros(-(-len(raw) // 4) * 4, np.uint8)
+        buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+        pfp = th.digest_host(buf.view(np.uint32), tag=len(raw))
+        words[4 * i:4 * i + 4] = (pfp & 0xFFFFFFFF, pfp >> 32, fp & 0xFFFFFFFF, fp >> 32)
+    root = th.digest_host(words)
+    check(f"{root:016x}" == manifest["root"],
+          f"{step_dir}: root {manifest['root']} != digest_host {root:016x}")
+    return {"leaves": leaves, "bytes": n_bytes, "root": manifest["root"],
+            "seconds": time.perf_counter() - t0}
+
+
+def train_system(port: Port, device, card: str) -> dict:
+    """12c: the `Trainer` on `granite_moe_hash` at full width with 2 layers:
+    12 steps, checkpoints every 4, a fault at step 6 (resumed from step 4),
+    the last checkpoint restored equal to the final state, kernel-1
+    launches as predicted, the final checkpoint's fingerprints ==
+    `plain_checkpoint_check`'s; then `ServeEngine` serves 4 requests from
+    the trained parameters."""
+    import dataclasses
+    import tempfile
+
+    torch = port.torch
+    full = port.get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2)
+    tag = f"12c {TRAIN_ARCH} at full width, n_layers {full.n_layers} -> 2"
+    api = port.build_model(cfg)
+    # the faulted step draws a batch and the replay redraws steps 4 and 5
+    batches = train_batches(port, device, cfg,
+                            SYSTEM_STEPS + 1 + SYSTEM_FAULT - SYSTEM_EVERY)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        tc = port.train.TrainerConfig(total_steps=SYSTEM_STEPS,
+                                      checkpoint_every=SYSTEM_EVERY, keep_checkpoints=2,
+                                      checkpoint_dir=d, log_every=1, peak_lr=1e-3,
+                                      warmup_steps=2)
+        tr = port.train.Trainer(api, tc, device=device)
+        fired = []
+
+        def injector(step):
+            if step == SYSTEM_FAULT and not fired:
+                fired.append(step)
+                raise port.train.SimulatedFault("preempted")
+
+        # leaves of the checkpointed state: its reference layout
+        skel = port.train.train_state.skeleton(
+            port.train.init_state(api, tr.optimizer,
+                                  torch.Generator(device).manual_seed(0)))
+        n = len(port.flatten(skel))
+        del skel
+        torch.cuda.empty_cache()
+        saves = SYSTEM_STEPS // SYSTEM_EVERY + 1  # steps 4, 8, 12 and the end's 12
+        want = (saves * (2 * n + 1)   # a save: n leaves, n paths and the root
+                + (2 * n + 1) + n     # the fault: verify step 4, restore it
+                + (2 * n + 1) + n     # below: latest_valid (uncached), restore
+                + 1)                  # the 4 short prompts' keys
+        c0 = port.counts()["multihash"]
+        state = tr.train(iter(batches), fault_injector=injector)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        check(fired == [SYSTEM_FAULT] and tr.restarts == 1
+              and int(state.step) == SYSTEM_STEPS,
+              f"{tag}: fault {fired}, restarts {tr.restarts}, step {int(state.step)}")
+        replayed = [m["step"] for m in tr.metrics_log]
+        check(replayed == list(range(SYSTEM_FAULT)) + list(range(SYSTEM_EVERY,
+                                                                 SYSTEM_STEPS)),
+              f"{tag}: logged steps {replayed}")
+        check(tr.ckpt.latest_valid() == SYSTEM_STEPS, f"{tag}: latest valid checkpoint")
+        restored = tr.ckpt.restore(SYSTEM_STEPS, port.train.train_state.skeleton(state))
+        saved = port.train.train_state.to_reference(state)
+        got = dict(port.flatten(restored))
+        check(all(torch.equal(got[p].cpu(), x.cpu()) for p, x in port.flatten(saved)),
+              f"{tag}: the restored state != the saved one")
+        ckpt_gb = sum(x.numel() * x.element_size() for _, x in port.flatten(saved)) / 1e9
+        del restored, saved, got
+        torch.cuda.empty_cache()
+        # the launches above fingerprinted with the kernel at save, verify
+        # and restore; the final checkpoint's fingerprints again without it
+        plain = plain_checkpoint_check(port, tr.ckpt.tree,
+                                       os.path.join(d, f"step_{SYSTEM_STEPS}"), device)
+    losses = [m["loss"] for m in tr.metrics_log]
+    check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite loss")
+    eng = port.ServeEngine(api, state.params, n_slots=4, max_seq=256, device=device)
+    g = np.random.default_rng(SEED + 13)
+    reqs = [port.Request(i, g.integers(0, cfg.vocab_size, 24 + 8 * i).astype(np.int32),
+                         max_new_tokens=8) for i in range(SYSTEM_REQUESTS)]
+    eng.submit_all(reqs)
+    check(all(r.done and len(r.out_tokens) == 8 for r in reqs),
+          f"{tag}: a request was not served")
+    launches = port.counts()["multihash"] - c0
+    port.tally += want
+    print(f"{tag}: {SYSTEM_STEPS} steps with a fault at step {SYSTEM_FAULT} "
+          f"(resumed from step {SYSTEM_EVERY}) in {train_s:.3f} s; checkpoint of "
+          f"{n} leaves, {ckpt_gb:.3f} GB; restored == saved; multihash launches "
+          f"{launches} (predicted {want}); the step-{SYSTEM_STEPS} manifest's "
+          f"{plain['leaves']} leaf fingerprints ({plain['bytes']} bytes) == the "
+          f"plain version on the card, its paths and root {plain['root']} == "
+          f"digest_host ({plain['seconds']:.3f} s); {SYSTEM_REQUESTS} requests served; "
+          f"losses {[round(v, 4) for v in losses]}; card {card}")
+    check(launches == want, f"{tag}: {launches} multihash launches != {want} predicted")
+    rec = {"config": tag, "steps": SYSTEM_STEPS, "checkpoint_every": SYSTEM_EVERY,
+           "fault_at": SYSTEM_FAULT, "leaves": n, "checkpoint_gb": ckpt_gb,
+           "train_s": train_s, "losses": losses, "launches": launches,
+           "predicted_launches": want, "plain_checkpoint_check": plain, "card": card}
+    del state, eng, tr
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -2743,7 +3180,25 @@ def main() -> int:
               and not counts11["gf_multihash"] + counts11["multilinear"]
               + counts11["gf_multilinear"],
               f"phase 11 launches {counts11} != {port.tally} multihash launches")
+        # phase 12 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        port.tally = 0
+        with phase("phase 12a: one train step, card == CPU (f32)"):
+            parity12 = {name: train_parity(port, device, card, name, n)
+                        for name, n in PARITY_12}
+        with phase(f"phase 12b: training {TRAIN_ARCH} at its published size"):
+            train12 = train_full(port, device, card)
+        with phase("phase 12c: the Trainer, a fault, checkpoints and serving"):
+            system12 = train_system(port, device, card)
+        counts12 = port.counts()
+        print(f"phase 12 launches: {counts12} (12c's predicted and the "
+              f"pipelines' counted: {port.tally})")
+        check(counts12["multihash"] > 0 and counts12["multihash"] == port.tally
+              and not counts12["gf_multihash"] + counts12["multilinear"]
+              + counts12["gf_multilinear"],
+              f"phase 12 launches {counts12} != {port.tally} multihash launches")
         for rec in kernels:
+            rec["phase12_launches"] = counts12[rec["name"]]
             rec["phase8_launches"] = shard_launches[rec["name"]]
             rec["phase9_launches"] = battery_launches[rec["name"]]
             rec["phase10_launches"] = serve_counts[rec["name"]]
@@ -2777,7 +3232,9 @@ def main() -> int:
              "serving": {"parity": parity, "serve": serving,
                          "launches": serve_counts},
              "serving_11": {"parity": parity11, "serve": serving11,
-                            "launches": counts11}},
+                            "launches": counts11},
+             "training_12": {"parity": parity12, "train": train12,
+                             "trainer": system12, "launches": counts12}},
             indent=1))
         (out_dir / "quality_report.json").write_text(json.dumps(quality_report,
                                                                 indent=1))

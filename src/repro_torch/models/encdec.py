@@ -7,10 +7,14 @@ cross-attention (the encoder's K/V, cached once per request) and an MLP,
 with learned positions (8,192 rows). Built from the sublayers of
 transformer.py; the layer stacks are lists, as the LM's blocks are
 (`enc_layers.3.attn.wq.w` is the reference's `enc_layers/attn/wq/w[3]`).
+With gradients on and `cfg.remat`, each encoder layer and each decoder
+layer of a 'train' pass is recomputed in the backward, as the reference
+checkpoints its scan bodies.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import layers
@@ -24,10 +28,11 @@ DEC_DESC = SubDesc(kind="attn", causal=True, ffn="dense", cross=True)
 DEC_POSITIONS = 8192
 
 
-def init_encdec(gen: torch.Generator, cfg) -> ParamTree:
+def init_encdec(gen: torch.Generator, cfg, train: bool = False) -> ParamTree:
     """Weights drawn from `gen` on its device, matrices in the compute
-    dtype (norm scales and biases in f32)."""
-    dtype = compute_dtype(cfg)
+    dtype (norm scales and biases in f32); with `train`, f32 masters that
+    take gradients (`transformer.init_lm`)."""
+    dtype = torch.float32 if train else compute_dtype(cfg)
     return ParamTree({
         "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "pos_dec": {"w": init_normal(gen, (DEC_POSITIONS, cfg.d_model), 0.01, dtype)},
@@ -37,7 +42,7 @@ def init_encdec(gen: torch.Generator, cfg) -> ParamTree:
                    for _ in range(cfg.n_layers)],
         "enc_norm": _norm_init(cfg, gen),
         "final_norm": _norm_init(cfg, gen),
-    })
+    }, trainable=train)
 
 
 def encode(params, cfg, frames, moe_groups=1):
@@ -45,9 +50,14 @@ def encode(params, cfg, frames, moe_groups=1):
     dtype = compute_dtype(cfg)
     B, S, D = frames.shape
     x = frames.to(dtype) + layers.sinusoidal_positions(S, D, frames.device).to(dtype)[None]
+
+    def layer(p, x):
+        return apply_sublayer(p, x, ENC_DESC, cfg, mode="train",
+                              moe_groups=moe_groups, dtype=dtype)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in params["enc_layers"]:
-        x, _ = apply_sublayer(p, x, ENC_DESC, cfg, mode="train",
-                              moe_groups=moe_groups, dtype=dtype)
+        x = checkpoint(layer, p, x, use_reentrant=False) if remat else layer(p, x)
     return _norm_apply(cfg, params["enc_norm"], x)
 
 
@@ -78,15 +88,20 @@ def decoder_forward(params, cfg, tokens, *, mode, caches=None, enc_out=None,
     x = layers.embed(params["embed"], tokens, dtype)
     pos = pos_offset + torch.arange(T, device=x.device)
     x = x + params["pos_dec"]["w"].to(dtype)[pos][None]
-    for b, p_layer in enumerate(params["blocks"]):
+    def layer(b, p_layer, x):
         if caches is not None:
             c = {k: t[b] for k, t in caches["blocks"]["s0"].items()}  # views
         else:
             ck, cv = _cross_kv(p_layer, cfg, enc_out.to(dtype))
             c = {"cross_k": ck, "cross_v": cv}
-        x, _ = apply_sublayer(p_layer["s0"], x, DEC_DESC, cfg, mode=mode,
+        return apply_sublayer(p_layer["s0"], x, DEC_DESC, cfg, mode=mode,
                               pos_offset=pos_offset, cache=c,
-                              moe_groups=moe_groups, dtype=dtype)
+                              moe_groups=moe_groups, dtype=dtype)[0]
+
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    for b, p_layer in enumerate(params["blocks"]):
+        x = (checkpoint(layer, b, p_layer, x, use_reentrant=False) if remat
+             else layer(b, p_layer, x))
     return _norm_apply(cfg, params["final_norm"], x), caches
 
 

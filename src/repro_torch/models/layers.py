@@ -11,7 +11,9 @@ not its values (`models.convert.params_from_jax` carries those across).
 Weights the reference stores in f32 and casts to the compute dtype at
 every use (`linear`, `embed`, the unembedding) may be held in that dtype
 (`dtype=` of the inits): the cast is the same, so the values are too.
-Norm scales stay f32.
+Norm scales stay f32. Training holds every float leaf in f32 (the
+reference's masters) and casts at use; the gradients flow back through
+those casts.
 """
 from __future__ import annotations
 
@@ -33,18 +35,21 @@ class ParamTree(nn.Module):
     reference's pytree (a sublayer, a block, an embedding), addressed as
     the reference addresses its dicts (`p["attn"]["wq"]["w"]`), with the
     reference's names as `state_dict` paths (`blocks.0.s0.attn.wq.w`; a
-    list becomes a `ModuleList`). Float leaves are parameters without
-    gradients (serving only), integer leaves buffers."""
+    list becomes a `ModuleList`). Float leaves are parameters, integer
+    leaves buffers. A serving tree's parameters take no gradient; a
+    `trainable` tree's do, except under a path holding ``const_`` (the
+    reference's filter of non-trainable leaves)."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for name, v in tree.items():
+            train = trainable and "const_" not in name
             if isinstance(v, dict):
-                self.add_module(name, ParamTree(v))
+                self.add_module(name, ParamTree(v, train))
             elif isinstance(v, list):
-                self.add_module(name, nn.ModuleList(ParamTree(t) for t in v))
+                self.add_module(name, nn.ModuleList(ParamTree(t, train) for t in v))
             elif v.is_floating_point():
-                self.register_parameter(name, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(v, requires_grad=train))
             else:
                 self.register_buffer(name, v)
 
@@ -209,10 +214,35 @@ def embedding_init(gen, vocab, d_model, dtype=torch.float32):
     return {"tok": {"w": init_normal(gen, (vocab, d_model), 0.02, dtype)}}
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """The reference's `_embed_lookup`: a row gather in the compute dtype
+    whose backward scatter-adds the cotangent into an f32 (V, D) zero
+    table and rounds once to the compute dtype (a bf16 scatter-add over
+    many tokens would lose bits). `index_put_(accumulate=True)` sums the
+    duplicates of a token in a fixed order on the card too (it sorts the
+    indices; no atomics), so the gradient repeats bit for bit."""
+
+    @staticmethod
+    def forward(ctx, w, tokens, dtype):
+        ctx.save_for_backward(tokens)
+        ctx.w_dtype = w.dtype
+        ctx.vocab = w.shape[0]
+        return w[tokens].to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        D = g.shape[-1]
+        dw = g.new_zeros((ctx.vocab, D), dtype=torch.float32)
+        dw.index_put_((tokens.reshape(-1),), g.reshape(-1, D).float(),
+                      accumulate=True)
+        return dw.to(g.dtype).to(ctx.w_dtype), None, None
+
+
 def embed(params, tokens, dtype=torch.bfloat16):
-    """Row gather (the forward of the reference's `_embed_lookup`; its
-    scatter-add backward is training, a later slice)."""
-    return params["tok"]["w"][tokens.long()].to(dtype)
+    """Row gather of the token table in `dtype`, with the reference's
+    scatter-add backward (`_EmbedLookup`)."""
+    return _EmbedLookup.apply(params["tok"]["w"], tokens.long(), dtype)
 
 
 def hashed_embedding_init(gen, vocab, d_model, n_buckets, n_hashes=2,
@@ -263,6 +293,10 @@ def hashed_buckets(params, tokens, n_buckets, n_hashes=2):
 
 
 def hashed_embed(params, tokens, n_buckets, n_hashes=2, dtype=torch.bfloat16):
+    """Plain autograd: the gathers' backward accumulates in the table's
+    dtype (f32 masters), the reference's in the compute dtype (it casts a
+    table before gathering from it). Equal in f32; in bf16 the port's
+    gradient of `hashed` and `mix` is the more exact one."""
     buckets = hashed_buckets(params, tokens, n_buckets, n_hashes)
     mix = params["mix"]["w"][tokens.long()].to(dtype)  # (..., n_hashes)
     table = params["hashed"]["w"]

@@ -4,9 +4,12 @@ this; `configs.get_config(name)` and then `build()`.
 
 The port of `repro.models.model_zoo`, for all 10 architectures and their
 variants. Batches may hold numpy arrays or tensors; they are moved to the
-parameters' device. `loss` is the forward loss: gradients are a later
-slice. `moe_groups` is the number of MoE dispatch groups (capacity is per
-group, so it decides which tokens drop).
+parameters' device. `loss` returns a loss that carries its gradient to
+the parameters of a tree built with `init(gen, train=True)` (f32 masters;
+`train.make_train_step` differentiates it). `moe_groups` is the number of
+MoE dispatch groups (capacity is per group, so it decides which tokens
+drop). `prefill` and `decode_step` record no gradient, so a trained
+tree serves as it is.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from . import encdec, transformer
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ArchConfig
-    init: Callable                  # (torch.Generator) -> params
+    init: Callable                  # (torch.Generator, train=False) -> params
     loss: Callable                  # (params, batch, moe_groups) -> (loss, metrics)
     prefill: Callable               # (params, batch, cache_len, moe_groups) -> (logits, caches)
     decode_step: Callable           # (params, caches, token, pos, moe_groups) -> (logits, caches)
@@ -61,20 +64,22 @@ def _batch_specs_lm(cfg, shape: ShapeSpec):
 
 
 def _build_lm(cfg: ArchConfig) -> ModelAPI:
-    def init(gen: torch.Generator):
-        """Weights drawn from `gen` on its device."""
-        return transformer.init_lm(gen, cfg)
+    def init(gen: torch.Generator, train: bool = False):
+        """Weights drawn from `gen` on its device (f32 masters with `train`)."""
+        return transformer.init_lm(gen, cfg, train)
 
     def loss(params, batch, moe_groups=1):
         return transformer.lm_loss(params, cfg, _on(params, batch),
                                    moe_groups=moe_groups)
 
+    @torch.no_grad()
     def prefill(params, batch, cache_len=None, moe_groups=1):
         b = _on(params, batch)
         return transformer.prefill(params, cfg, b["tokens"], cache_len=cache_len,
                                    moe_groups=moe_groups,
                                    patch_embeds=b.get("patch_embeds"))
 
+    @torch.no_grad()
     def decode_step(params, caches, token, pos, moe_groups=1):
         token = torch.as_tensor(token, device=params_device(params))
         return transformer.decode_step(params, cfg, caches, token, pos,
@@ -90,19 +95,21 @@ def _build_lm(cfg: ArchConfig) -> ModelAPI:
 
 
 def _build_encdec(cfg: ArchConfig) -> ModelAPI:
-    def init(gen: torch.Generator):
-        """Weights drawn from `gen` on its device."""
-        return encdec.init_encdec(gen, cfg)
+    def init(gen: torch.Generator, train: bool = False):
+        """Weights drawn from `gen` on its device (f32 masters with `train`)."""
+        return encdec.init_encdec(gen, cfg, train)
 
     def loss(params, batch, moe_groups=1):
         return encdec.encdec_loss(params, cfg, _on(params, batch),
                                   moe_groups=moe_groups)
 
+    @torch.no_grad()
     def prefill(params, batch, cache_len=None, moe_groups=1):
         b = _on(params, batch)
         return encdec.encdec_prefill(params, cfg, b["frames"], b["tokens"],
                                      cache_len=cache_len, moe_groups=moe_groups)
 
+    @torch.no_grad()
     def decode_step(params, caches, token, pos, moe_groups=1):
         token = torch.as_tensor(token, device=params_device(params))
         return encdec.encdec_decode_step(params, cfg, caches, token, pos,

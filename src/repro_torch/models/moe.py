@@ -98,9 +98,13 @@ def _group_dispatch(idx, n_experts, capacity):
     the pair drops."""
     G, n, k = idx.shape
     flat_e = idx.reshape(G, n * k)
-    oh = torch.nn.functional.one_hot(flat_e, n_experts)           # (G, n*k, E)
-    ranks = oh.cumsum(dim=1) - 1                                   # rank within expert
-    slot = ranks.gather(2, flat_e[..., None])[..., 0]
+    # (G, E, n*k): the running count runs along the last axis, where the
+    # card scans each row in parallel (along axis 1 of (G, n*k, E) it scans
+    # with one thread an expert: 0.7 s a train step at granite's 65,536
+    # pairs)
+    oh = torch.nn.functional.one_hot(flat_e, n_experts).transpose(1, 2).contiguous()
+    ranks = oh.cumsum(dim=2) - 1                                   # rank within expert
+    slot = ranks.gather(1, flat_e[:, None, :])[:, 0]
     return torch.where(slot < capacity, slot, capacity).reshape(G, n, k)
 
 

@@ -25,6 +25,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from . import attention as attn
@@ -140,10 +141,13 @@ def init_block(gen, cfg, subs, dtype):
     return {f"s{i}": init_sublayer(gen, cfg, d, dtype) for i, d in enumerate(subs)}
 
 
-def init_lm(gen: torch.Generator, cfg) -> ParamTree:
+def init_lm(gen: torch.Generator, cfg, train: bool = False) -> ParamTree:
     """Weights drawn from `gen` on its device, matrices held in the compute
-    dtype (norm scales and the leaves the reference uses uncast in f32)."""
-    dtype = compute_dtype(cfg)
+    dtype (norm scales and the leaves the reference uses uncast in f32).
+    With `train`, every float leaf is an f32 master taking gradients (the
+    reference's `init` and optimizer keep f32 leaves; bf16 masters drift
+    within a few steps)."""
+    dtype = torch.float32 if train else compute_dtype(cfg)
     n_blocks, subs, tail = block_spec(cfg)
     params = {}
     if cfg.hashed_embedding:
@@ -160,7 +164,7 @@ def init_lm(gen: torch.Generator, cfg) -> ParamTree:
     if not cfg.tie_embeddings or cfg.hashed_embedding:
         params["lm_head"] = {"w": layers.init_normal(
             gen, (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model), dtype)}
-    return ParamTree(params)
+    return ParamTree(params, trainable=train)
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +353,11 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
     aux is the sum of the MoE layers' balance losses (0 without MoE);
     `caches` are the ones given, written in place (None in 'train' mode).
     The hash router reads the tokens as its token ids (the reference
-    passes them to every sublayer, zeros for the other routers)."""
+    passes them to every sublayer, zeros for the other routers). In
+    'train' mode with gradients on and `cfg.remat`, each block is
+    recomputed in the backward (the reference's `jax.checkpoint` of its
+    scan body, nothing saved): the same values, activation memory of one
+    residual a block; the tail is not, as in the reference."""
     dtype = compute_dtype(cfg)
     _, subs, tail = block_spec(cfg)
     x = embed_tokens(params, cfg, tokens, dtype)
@@ -360,18 +368,24 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
               token_ids=tokens if cfg.moe and cfg.router == "hash" else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(p, x, desc, cache):
-        x, a = apply_sublayer(p, x, desc, cfg, cache=cache, **kw)
-        return x, (aux if a is None else aux + a)
-
-    for b, p_block in enumerate(params["blocks"]):
+    def block(b, p_block, x, aux):
         for i, desc in enumerate(subs):
             cache = None if caches is None else {
                 k: t[b] for k, t in caches["blocks"][f"s{i}"].items()}  # views
-            x, aux = run(p_block[f"s{i}"], x, desc, cache)
+            x, a = apply_sublayer(p_block[f"s{i}"], x, desc, cfg, cache=cache, **kw)
+            aux = aux if a is None else aux + a
+        return x, aux
+
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    for b, p_block in enumerate(params["blocks"]):
+        if remat:
+            x, aux = checkpoint(block, b, p_block, x, aux, use_reentrant=False)
+        else:
+            x, aux = block(b, p_block, x, aux)
     for i, desc in enumerate(tail):
         cache = None if caches is None else caches["tail"][f"s{i}"]
-        x, aux = run(params["tail"][f"s{i}"], x, desc, cache)
+        x, a = apply_sublayer(params["tail"][f"s{i}"], x, desc, cfg, cache=cache, **kw)
+        aux = aux if a is None else aux + a
     x = _norm_apply(cfg, params["final_norm"], x)
     return x, aux, caches
 
@@ -380,7 +394,21 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
 # chunked cross entropy (never materializes (B,T,V))
 # ---------------------------------------------------------------------------
 
+def _chunk_loss(h, W, labels, weights, z_loss):
+    """Summed CE plus z-loss of one (B, C) chunk; its (B, C, V) f32 logits
+    exist only inside the call."""
+    logits = (h @ W).float()  # (B, C, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    zl = z_loss * lse.square()
+    return ((lse - ll + zl) * weights).sum()
+
+
 def chunked_ce_loss(params, cfg, hidden, labels, mask=None, z_loss=1e-4):
+    """Mean CE over the (B, T) labels, in T chunks of `cfg.ce_chunk`. With
+    gradients on, each chunk is recomputed in the backward (the
+    reference's `jax.checkpoint` of its chunk body), so no chunk's logits
+    outlive it."""
     B, T, D = hidden.shape
     W = unembed_matrix(params, cfg, hidden.dtype)  # (D, V)
     C = min(cfg.ce_chunk, T)
@@ -389,19 +417,19 @@ def chunked_ce_loss(params, cfg, hidden, labels, mask=None, z_loss=1e-4):
                          f"chunk {C}")
     weights = mask.float() if mask is not None else torch.ones(
         B, T, dtype=torch.float32, device=hidden.device)
+    remat = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, T, C):
-        logits = (hidden[:, c0:c0 + C] @ W).float()  # (B, C, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, labels[:, c0:c0 + C, None].long())[..., 0]
-        zl = z_loss * lse.square()
-        total = total + ((lse - ll + zl) * weights[:, c0:c0 + C]).sum()
+        args = (hidden[:, c0:c0 + C], W, labels[:, c0:c0 + C],
+                weights[:, c0:c0 + C], z_loss)
+        total = total + (checkpoint(_chunk_loss, *args, use_reentrant=False)
+                         if remat else _chunk_loss(*args))
     return total / (mask.sum().clamp_min(1) if mask is not None else max(B * T, 1))
 
 
 def lm_loss(params, cfg, batch, moe_groups=1, balance_coef=0.01):
-    """Forward loss, CE plus `balance_coef` times the MoE balance loss (no
-    gradient in this slice)."""
+    """CE plus `balance_coef` times the MoE balance loss, and the metrics
+    {"ce", "balance"}; the loss carries the gradient of both terms."""
     hidden, aux, _ = forward(params, cfg, batch["tokens"], mode="train",
                              patch_embeds=batch.get("patch_embeds"),
                              moe_groups=moe_groups)

@@ -73,3 +73,36 @@ def words_to_bytes(words: np.ndarray, m: int) -> np.ndarray:
     filter is bit i % 64 of word i // 64)."""
     return np.unpackbits(np.asarray(words, np.uint64).view(np.uint8),
                          bitorder="little")[:m]
+
+
+def train_states_close(ref_state, port_state, lr_sum: float, state_rtol=1e-3) -> int:
+    """Hold a port `TrainState` against a reference one (numpy or jax
+    leaves) after the same steps: every leaf path, shape and dtype equal,
+    integer leaves exact; parameters within 2 x lr_sum + 1e-5 (an element
+    whose gradient is within rounding of 0 may take AdamW's +-lr step the
+    other way in one package); the optimizer's state within state_rtol of
+    its leaf's largest magnitude + 1e-9. Returns the count of parameter
+    elements past 1e-5 (those flips)."""
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.train.train_state import to_reference
+
+    want = {p: np.asarray(w) for p, w in flatten_with_paths(ref_state)}
+    got = dict(flatten_with_paths(to_reference(port_state)))
+    assert set(got) == set(want)
+    flips = 0
+    for path, w in want.items():
+        g = got[path]
+        g = g.numpy().astype(np.int64) if g.dtype == torch.uint32 else g.numpy()
+        assert g.shape == w.shape, path
+        if w.dtype.kind != "f":
+            np.testing.assert_array_equal(g, w.astype(np.int64), err_msg=path)
+            continue
+        assert g.dtype == w.dtype, path
+        err = np.abs(g - w)
+        if path.startswith(".params/"):
+            assert err.max(initial=0.0) <= 2 * lr_sum + 1e-5, (path, err.max())
+            flips += int((err > 1e-5).sum())
+        else:
+            assert err.max(initial=0.0) <= state_rtol * np.abs(w).max(initial=0.0) + 1e-9, \
+                (path, err.max())
+    return flips

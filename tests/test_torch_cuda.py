@@ -510,3 +510,45 @@ def test_serve_engine_on_card_matches_cpu(cuda, f32_matmul):
         assert out[1][:3] == out[0][:3]
         if items is None:  # 1 launch for the short prompts, 1 per long one
             assert out[1][3] == 1 + sum(len(p) >= 12 for p in ps)
+
+
+@pytest.mark.parametrize("name", ["mistral_nemo_12b", "granite_moe_hash",
+                                  "llama4_maverick_400b_a17b"])
+def test_train_step_on_card_matches_cpu(cuda, f32_matmul, name):
+    """One train step (f32 masters, f32 compute, TF32 off) on the card ==
+    on the CPU from the same state and batch: the loss and grad norm within
+    1e-4 relative, the parameters within 2 x lr (an element whose gradient
+    is within rounding of 0 may take AdamW's +-lr step the other way; the
+    adafactor step of llama4 is clipped to lr too) and, past 1e-5, on at
+    most 64 elements; the key planes exact."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import Schedule, init_state, make_optimizer, make_train_step
+    from repro_torch.train.train_state import copy_to
+
+    cfg = dataclasses.replace(get_config(name, smoke=True), dtype="float32")
+    api = build(cfg)
+    lr = 1e-3
+    opt = make_optimizer(cfg.optimizer, Schedule(peak_lr=lr, warmup_steps=0))
+    cpu = init_state(api, opt, torch.Generator().manual_seed(4))
+    card = copy_to(cpu, cuda)
+    g = rng(0x7A)
+    batch = {"tokens": g.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32),
+             "labels": g.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)}
+    step = make_train_step(api, opt)
+    cpu, mc = step(cpu, batch)
+    card, mg = step(card, batch)
+    for k in ("loss", "grad_norm", "ce", "balance"):
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-4, atol=1e-6)
+    flips = 0
+    for (n, a), (_, b) in zip(cpu.params.named_parameters(),
+                              card.params.named_parameters()):
+        err = (b.detach().cpu() - a.detach()).abs()
+        assert float(err.max()) <= 2 * lr + 1e-6, n
+        flips += int((err > 1e-5).sum())
+    for (n, a), (_, b) in zip(cpu.params.named_buffers(), card.params.named_buffers()):
+        assert torch.equal(a, b.cpu()), n
+    assert flips <= 64, flips
+
