@@ -254,16 +254,39 @@ check exits non-zero. The last line is the JSON device record.
        engine's plain version on the card, the paths' and the root by
        `digest_host`), then `ServeEngine` serves 4 requests from the
        trained parameters.
+13. sharding (`parallel/sharding.py`, `launch/mesh.py`, the sharded step
+    and restore), a path of its own after phase 12 (counts set to 0
+    again; every kernel-1 launch predicted and checked):
+    a. the rules at full size: every architecture at (16, 16) and
+       (2, 16, 16), training and serving, from shapes only (fake
+       tensors): the leaves sharded and the bytes a rank holds;
+    b. `jit_train_step` on a world of 8 threaded ranks on the card
+       (`parallel.local_world`), shaped (pod 2, data 2, model 2):
+       `granite_moe_hash` at full width with n_layers 24 -> 2 in f32 (TF32
+       off) on 3 HashPipeline batches of 8 x 1,024 tokens, with
+       `fsdp_pods` on and off, and 1 step of `llama4_smoke` under
+       adafactor (fsdp_pods on): after every step every rank's chunks,
+       the loss and the gradient norm against the single-device step
+       (`moe_groups` 4) within 12a's bounds; ms a step of the world and the
+       bytes each collective sent;
+    c. `Checkpointer.restore(mesh=)` of 12c's last checkpoint onto the
+       world: every rank's chunks == its slices of the single-device
+       restore, kernel-1 launches == the prediction;
+    d. `hierarchical_psum` of integer-valued f32 on the world == the plain
+       sum, exactly.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import inspect
+import itertools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -358,6 +381,12 @@ class Port:
         from repro_torch.serve import Request, ServeEngine
         from repro_torch import train
         from repro_torch.data.synthetic import corpus
+        import torch.distributed as dist
+        from repro_torch.configs import list_configs
+        from repro_torch.launch import make_production_mesh
+        from repro_torch.models.convert import nested
+        from repro_torch.parallel import Mesh, collectives, local_world
+        from repro_torch.parallel import sharding
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
         self.gf, self.keys, self.streaming = gf, keys, streaming
@@ -380,6 +409,10 @@ class Port:
                                                             ServeEngine)
         self.encdec, self.ssm = encdec, ssm
         self.train, self.corpus = train, corpus
+        self.dist, self.list_configs, self.nested = dist, list_configs, nested
+        self.make_production_mesh, self.Mesh = make_production_mesh, Mesh
+        self.collectives, self.local_world, self.sharding = (collectives, local_world,
+                                                             sharding)
         self.tally = 0  # engine launches `launched` has checked
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
@@ -2639,7 +2672,8 @@ def train_batches(port, device, cfg, n: int, B: int = TRAIN_B, T: int = TRAIN_T)
 
 def moved_apart(port, cfg, a: dict, b: dict, m_a: dict, m_b: dict) -> dict:
     """The parameter elements of two states after one step from one state
-    (a on the CPU, b on the card; reference paths -> tensors) that differ
+    (a the yardstick, b the state under test; reference paths -> tensors,
+    b's moved to a's device) that differ
     past MOVED_12, and whether each has its cause. AdamW's first update
     of an element is lr g/(|g| + eps) of its clipped gradient g, which the
     first moment holds as m = (1 - b1) g. For two gradients of one sign
@@ -2654,7 +2688,7 @@ def moved_apart(port, cfg, a: dict, b: dict, m_a: dict, m_b: dict) -> dict:
     out = {"moved": 0, "sign_flips": 0, "unexplained": 0, "max_abs": 0.0,
            "largest_g": 0.0, "g_limit": g_limit, "largest_g_over_leaf_max": 0.0}
     for path, x in a.items():
-        d = (b[path].cpu() - x).abs()
+        d = (b[path].to(x.device) - x).abs()
         out["max_abs"] = max(out["max_abs"], float(d.max()))
         moved = d > MOVED_12
         n = int(moved.sum())
@@ -2664,7 +2698,7 @@ def moved_apart(port, cfg, a: dict, b: dict, m_a: dict, m_b: dict) -> dict:
         if cfg.optimizer != "adamw":
             out["unexplained"] += n
             continue
-        ga, gb = m_a[path] / (1 - b1), m_b[path].cpu() / (1 - b1)
+        ga, gb = m_a[path] / (1 - b1), m_b[path].to(m_a[path].device) / (1 - b1)
         ga_m, gb_m = ga[moved], gb[moved]
         flip = torch.sign(ga_m) != torch.sign(gb_m)
         small = torch.minimum(ga_m.abs(), gb_m.abs())
@@ -2898,15 +2932,15 @@ def plain_checkpoint_check(port, th, step_dir: str, device) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def train_system(port: Port, device, card: str) -> dict:
+def train_system(port: Port, device, card: str, d: str) -> dict:
     """12c: the `Trainer` on `granite_moe_hash` at full width with 2 layers:
     12 steps, checkpoints every 4, a fault at step 6 (resumed from step 4),
     the last checkpoint restored equal to the final state, kernel-1
     launches as predicted, the final checkpoint's fingerprints ==
     `plain_checkpoint_check`'s; then `ServeEngine` serves 4 requests from
-    the trained parameters."""
+    the trained parameters. Its checkpoints go to `d` (13c restores the
+    last)."""
     import dataclasses
-    import tempfile
 
     torch = port.torch
     full = port.get_config(TRAIN_ARCH)
@@ -2917,55 +2951,54 @@ def train_system(port: Port, device, card: str) -> dict:
     batches = train_batches(port, device, cfg,
                             SYSTEM_STEPS + 1 + SYSTEM_FAULT - SYSTEM_EVERY)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
-        tc = port.train.TrainerConfig(total_steps=SYSTEM_STEPS,
-                                      checkpoint_every=SYSTEM_EVERY, keep_checkpoints=2,
-                                      checkpoint_dir=d, log_every=1, peak_lr=1e-3,
-                                      warmup_steps=2)
-        tr = port.train.Trainer(api, tc, device=device)
-        fired = []
+    tc = port.train.TrainerConfig(total_steps=SYSTEM_STEPS,
+                                  checkpoint_every=SYSTEM_EVERY, keep_checkpoints=2,
+                                  checkpoint_dir=d, log_every=1, peak_lr=1e-3,
+                                  warmup_steps=2)
+    tr = port.train.Trainer(api, tc, device=device)
+    fired = []
 
-        def injector(step):
-            if step == SYSTEM_FAULT and not fired:
-                fired.append(step)
-                raise port.train.SimulatedFault("preempted")
+    def injector(step):
+        if step == SYSTEM_FAULT and not fired:
+            fired.append(step)
+            raise port.train.SimulatedFault("preempted")
 
-        # leaves of the checkpointed state: its reference layout
-        skel = port.train.train_state.skeleton(
-            port.train.init_state(api, tr.optimizer,
-                                  torch.Generator(device).manual_seed(0)))
-        n = len(port.flatten(skel))
-        del skel
-        torch.cuda.empty_cache()
-        saves = SYSTEM_STEPS // SYSTEM_EVERY + 1  # steps 4, 8, 12 and the end's 12
-        want = (saves * (2 * n + 1)   # a save: n leaves, n paths and the root
-                + (2 * n + 1) + n     # the fault: verify step 4, restore it
-                + (2 * n + 1) + n     # below: latest_valid (uncached), restore
-                + 1)                  # the 4 short prompts' keys
-        c0 = port.counts()["multihash"]
-        state = tr.train(iter(batches), fault_injector=injector)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        check(fired == [SYSTEM_FAULT] and tr.restarts == 1
-              and int(state.step) == SYSTEM_STEPS,
-              f"{tag}: fault {fired}, restarts {tr.restarts}, step {int(state.step)}")
-        replayed = [m["step"] for m in tr.metrics_log]
-        check(replayed == list(range(SYSTEM_FAULT)) + list(range(SYSTEM_EVERY,
-                                                                 SYSTEM_STEPS)),
-              f"{tag}: logged steps {replayed}")
-        check(tr.ckpt.latest_valid() == SYSTEM_STEPS, f"{tag}: latest valid checkpoint")
-        restored = tr.ckpt.restore(SYSTEM_STEPS, port.train.train_state.skeleton(state))
-        saved = port.train.train_state.to_reference(state)
-        got = dict(port.flatten(restored))
-        check(all(torch.equal(got[p].cpu(), x.cpu()) for p, x in port.flatten(saved)),
-              f"{tag}: the restored state != the saved one")
-        ckpt_gb = sum(x.numel() * x.element_size() for _, x in port.flatten(saved)) / 1e9
-        del restored, saved, got
-        torch.cuda.empty_cache()
-        # the launches above fingerprinted with the kernel at save, verify
-        # and restore; the final checkpoint's fingerprints again without it
-        plain = plain_checkpoint_check(port, tr.ckpt.tree,
-                                       os.path.join(d, f"step_{SYSTEM_STEPS}"), device)
+    # leaves of the checkpointed state: its reference layout
+    skel = port.train.train_state.skeleton(
+        port.train.init_state(api, tr.optimizer,
+                              torch.Generator(device).manual_seed(0)))
+    n = len(port.flatten(skel))
+    del skel
+    torch.cuda.empty_cache()
+    saves = SYSTEM_STEPS // SYSTEM_EVERY + 1  # steps 4, 8, 12 and the end's 12
+    want = (saves * (2 * n + 1)   # a save: n leaves, n paths and the root
+            + (2 * n + 1) + n     # the fault: verify step 4, restore it
+            + (2 * n + 1) + n     # below: latest_valid (uncached), restore
+            + 1)                  # the 4 short prompts' keys
+    c0 = port.counts()["multihash"]
+    state = tr.train(iter(batches), fault_injector=injector)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(fired == [SYSTEM_FAULT] and tr.restarts == 1
+          and int(state.step) == SYSTEM_STEPS,
+          f"{tag}: fault {fired}, restarts {tr.restarts}, step {int(state.step)}")
+    replayed = [m["step"] for m in tr.metrics_log]
+    check(replayed == list(range(SYSTEM_FAULT)) + list(range(SYSTEM_EVERY,
+                                                             SYSTEM_STEPS)),
+          f"{tag}: logged steps {replayed}")
+    check(tr.ckpt.latest_valid() == SYSTEM_STEPS, f"{tag}: latest valid checkpoint")
+    restored = tr.ckpt.restore(SYSTEM_STEPS, port.train.train_state.skeleton(state))
+    saved = port.train.train_state.to_reference(state)
+    got = dict(port.flatten(restored))
+    check(all(torch.equal(got[p].cpu(), x.cpu()) for p, x in port.flatten(saved)),
+          f"{tag}: the restored state != the saved one")
+    ckpt_gb = sum(x.numel() * x.element_size() for _, x in port.flatten(saved)) / 1e9
+    del restored, saved, got
+    torch.cuda.empty_cache()
+    # the launches above fingerprinted with the kernel at save, verify
+    # and restore; the final checkpoint's fingerprints again without it
+    plain = plain_checkpoint_check(port, tr.ckpt.tree,
+                                   os.path.join(d, f"step_{SYSTEM_STEPS}"), device)
     losses = [m["loss"] for m in tr.metrics_log]
     check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite loss")
     eng = port.ServeEngine(api, state.params, n_slots=4, max_seq=256, device=device)
@@ -2995,6 +3028,330 @@ def train_system(port: Port, device, card: str) -> dict:
     return rec
 
 
+
+# --------------------------------------------------------------------------
+# phase 13: sharding rules, the sharded train step, restore onto a mesh
+# --------------------------------------------------------------------------
+
+# 13b/13c/13d: a world of 8 threaded ranks on the card, (pod 2, data 2,
+# model 2); the single-device step runs with one MoE group a batch rank
+WORLD_13 = ((2, 2, 2), ("pod", "data", "model"))
+STEPS_13 = 3
+# 13b bounds (12a's): the loss within LOSS_TOL_12 and the gradient norm
+# within GRAD_TOL_12 (rel); a parameter within 12a's 2 lr a step, summed
+# over the steps. After step 1 every element past MOVED_12 must have its
+# cause (`moved_apart`, as 12a) and the optimizer state (a moment of the
+# gradient, or of its square: twice its relative error) is within
+# 2 GRAD_TOL_12 of its leaf's largest magnitude. After later steps the
+# causes no longer separate (an element moved apart changes the next
+# gradient): at most 12a's backstop of elements past MOVED_12 a step,
+# summed over the steps, and the optimizer state within OPT_TOL_13, the
+# train tests' bound on the state after three steps against the reference
+# (+1e-9: the moments of gradients that are 0 in exact arithmetic are noise)
+OPT_TOL_13 = 1e-3
+# 13d: integer-valued f32, (pod, data) shards of PSUM_ROWS_13 x 1,024 rows each
+PSUM_ROWS_13 = 1024
+
+
+def rules_at_full_size(port: Port, card: str) -> dict:
+    """13a: every architecture at (16, 16) and (2, 16, 16), training (f32
+    masters and the optimizer's state) and serving (the compute dtype):
+    the count of leaves the rules shard, and the bytes a rank holds, from
+    shapes only (fake tensors: no weights drawn)."""
+    torch = port.torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    sh, tstate = port.sharding, port.train.train_state
+    out = {}
+    for name in port.list_configs():
+        cfg = port.get_config(name)
+        api = port.build_model(cfg)
+        opt = port.train.make_optimizer(cfg.optimizer, port.train.Schedule())
+        with FakeTensorMode():
+            train_p = api.init(torch.Generator(), train=True)
+            state = port.train.TrainState(torch.zeros((), dtype=torch.int32), train_p,
+                                          opt.init(train_p))
+            serve_p = api.init(torch.Generator())
+        rec = {"params": sum(x.numel() for x in train_p.parameters())}
+        for multi in (False, True):
+            mesh = port.make_production_mesh(multi_pod=multi)
+            label = "x".join(map(str, mesh.dims))
+            places = port.flatten(tstate.state_shardings(tstate.skeleton(state), mesh,
+                                                         cfg.fsdp_pods))
+            leaves = dict(port.flatten(tstate.skeleton(state)))
+            per_rank, sharded = 0, 0
+            for path, s in places:
+                x = leaves[path]
+                blocks = x if isinstance(s, list) else [x]
+                specs = s if isinstance(s, list) else [s]
+                sharded += any(e is not None for e in specs[0].spec)
+                per_rank += sum(math.prod(sp.local_shape(tuple(b.shape))) * b.element_size()
+                                for sp, b in zip(specs, blocks))
+            with sh.use_mesh(mesh):
+                serve_specs = port.flatten(sh.param_specs(serve_p, cfg.fsdp_pods,
+                                                          serving=True))
+            serve_leaves = dict(port.flatten(port.nested(serve_p)))
+            s_rank, s_sharded = 0, 0
+            for path, spec in serve_specs:
+                x = serve_leaves[path]
+                blocks = x if isinstance(spec, list) else [x]
+                specs = spec if isinstance(spec, list) else [spec]
+                s_sharded += any(e is not None for e in specs[0])
+                s_rank += sum(math.prod(sh.NamedSharding(mesh, sp).local_shape(
+                    tuple(b.shape))) * b.element_size() for sp, b in zip(specs, blocks))
+            rec[label] = {"train_leaves": len(places), "train_sharded": sharded,
+                          "train_bytes_per_rank": per_rank,
+                          "serve_leaves": len(serve_specs), "serve_sharded": s_sharded,
+                          "serve_bytes_per_rank": s_rank}
+            check(sharded > 0 and s_sharded > 0 and 0 < per_rank and 0 < s_rank,
+                  f"13a {name} at {label}: nothing sharded")
+        out[name] = rec
+        print(f"13a {name} ({rec['params']} parameters, {cfg.optimizer}, fsdp_pods "
+              f"{cfg.fsdp_pods}): " + "; ".join(
+                  f"{m}: train {r['train_sharded']}/{r['train_leaves']} leaves sharded, "
+                  f"{r['train_bytes_per_rank'] / 1e9:.3f} GB a rank (params + "
+                  f"{cfg.optimizer} state, f32); serve {r['serve_sharded']}/"
+                  f"{r['serve_leaves']} sharded, {r['serve_bytes_per_rank'] / 1e9:.3f} GB "
+                  f"a rank" for m, r in rec.items() if m != "params"))
+    return out
+
+
+def world_mesh(port: Port, device):
+    dims, names = WORLD_13
+    return port.Mesh((device,) * math.prod(dims), names, dims)
+
+
+def state_errors(port: Port, got, want, cfg=None) -> dict:
+    """A rank's chunks of a state against the single-device state's same
+    chunks: parameters' largest error and count past MOVED_12, the
+    optimizer state's largest error over its leaf's largest magnitude,
+    whether every integer leaf is equal; with `cfg` (after the first
+    step) also the count of elements past MOVED_12 without a cause
+    (`moved_apart`)."""
+    torch = port.torch
+    tstate = port.train.train_state
+    ref_got, ref_want = tstate.to_reference(got), tstate.to_reference(want)
+    a = dict(port.flatten(ref_got))
+    out = {"param_abs": 0.0, "moved": 0, "opt_rel": 0.0, "ints_equal": True,
+           "leaves": len(a)}
+    if cfg is not None:
+        params = [{p: x for p, x in port.flatten(s.params) if x.is_floating_point()}
+                  for s in (ref_want, ref_got)]
+        m = [dict(port.flatten(s.opt_state["m"])) if "m" in s.opt_state else {}
+             for s in (ref_want, ref_got)]
+        out["unexplained"] = moved_apart(port, cfg, *params, *m)["unexplained"]
+    for path, x in port.flatten(ref_want):
+        y = a[path]
+        if not x.is_floating_point():
+            out["ints_equal"] &= bool(torch.equal(y, x))
+            continue
+        d = (y.float() - x.float()).abs()
+        if path.startswith(".params"):
+            out["param_abs"] = max(out["param_abs"], float(d.max()))
+            out["moved"] += int((d > MOVED_12).sum())
+        else:
+            out["opt_rel"] = max(out["opt_rel"], float(d.max())
+                                 / (float(x.abs().max()) + 1e-9 / OPT_TOL_13))
+    return out
+
+
+def sharded_train(port: Port, device, card: str, name: str, n_layers, n_steps: int,
+                  batches, fsdp_settings) -> dict:
+    """13b: `jit_train_step` on the 8-rank world against the single-device
+    step (`moe_groups` = the 4 batch ranks) from one state on the card, in
+    f32 with TF32 off: every rank's chunks, the loss and the gradient norm
+    after every step within 12a's bounds; ms a step of the world and the
+    bytes each collective moved."""
+    torch = port.torch
+    dist = port.dist
+    tstate = port.train.train_state
+    if n_layers is None:
+        cfg = dataclasses.replace(port.get_config(name, smoke=True), dtype="float32")
+        tag = f"13b {cfg.name} (the SMOKE config of {name}, whole)"
+    else:
+        full = port.get_config(name)
+        cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
+        tag = f"13b {name} at full width, n_layers {full.n_layers} -> {n_layers}"
+    api = port.build_model(cfg)
+    opt = port.train.make_optimizer(cfg.optimizer, port.train.Schedule(
+        peak_lr=PARITY_12_LR, warmup_steps=0))
+    mesh = world_mesh(port, device)
+    n_batch = mesh.shape["pod"] * mesh.shape["data"]
+    step = port.train.make_train_step(api, opt, moe_groups=n_batch)
+    rec = {"config": tag, "optimizer": cfg.optimizer, "mesh": mesh.shape,
+           "batch": list(batches[0]["tokens"].shape), "steps": n_steps, "card": card}
+    with f32_products(torch):
+        state = port.train.init_state(api, opt, torch.Generator(device).manual_seed(SEED))
+        single, wants, metrics = tstate.copy_to(state, device), [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[:n_steps]:
+            single, m = step(single, b)
+            wants.append(tstate.copy_to(single, device))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        rec["single_ms"] = 1e3 * (time.perf_counter() - t0) / n_steps
+        del single
+        n_params = sum(p.numel() for p in state.params.parameters())
+        lrs = list(itertools.accumulate(m["lr"] for m in metrics))
+        bounds = {"loss_rel": LOSS_TOL_12, "grad_norm_rel": GRAD_TOL_12,
+                  "param_abs": [2 * v + 1e-6 for v in lrs],
+                  "moved": [(i + 1) * max(64, n_params // FLIPS_12) for i in range(n_steps)],
+                  "unexplained": 0,
+                  "opt_rel": [2 * GRAD_TOL_12] + [OPT_TOL_13] * (n_steps - 1)}
+        rec["bounds"] = bounds
+        for fsdp in fsdp_settings:
+            sharded = port.train.jit_train_step(
+                step, mesh, state, {k: v.ndim for k, v in batches[0].items()},
+                fsdp_pods=fsdp)
+
+            def rank(r, fsdp=fsdp, sharded=sharded):
+                sync = torch.zeros(1, device=device)
+                local = tstate.shard(state, mesh, r, fsdp)
+                res = []
+                for i, b in enumerate(batches[:n_steps]):
+                    lb = {k: port.sharding.batch_sharding(mesh, v.ndim).local(v, r)
+                          for k, v in b.items()}
+                    torch.cuda.synchronize()
+                    dist.all_reduce(sync)  # every rank starts the step together
+                    t0 = time.perf_counter()
+                    local, m = sharded(local, lb)
+                    torch.cuda.synchronize()
+                    dist.all_reduce(sync)
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    err = state_errors(port, local, tstate.shard(wants[i], mesh, r, fsdp),
+                                       cfg if i == 0 else None)
+                    res.append({"ms": ms, "loss": float(m["loss"]),
+                                "grad_norm": float(m["grad_norm"]),
+                                "traffic": m["traffic"], **err})
+                return res
+
+            per_rank = port.local_world.run(rank, mesh)
+            steps = []
+            for i in range(n_steps):
+                rs = [per_rank[r][i] for r in range(mesh.size)]
+                want = metrics[i]
+                errs = {"loss_rel": max(abs(x["loss"] - want["loss"]) / abs(want["loss"])
+                                        for x in rs),
+                        "grad_norm_rel": max(abs(x["grad_norm"] - want["grad_norm"])
+                                             / want["grad_norm"] for x in rs),
+                        "param_abs": max(x["param_abs"] for x in rs),
+                        "moved": max(x["moved"] for x in rs),
+                        "opt_rel": max(x["opt_rel"] for x in rs)}
+                if i == 0:
+                    errs["unexplained"] = sum(x["unexplained"] for x in rs)
+                ok = (errs["loss_rel"] <= bounds["loss_rel"]
+                      and errs["grad_norm_rel"] <= bounds["grad_norm_rel"]
+                      and errs["param_abs"] <= bounds["param_abs"][i]
+                      and errs["moved"] <= bounds["moved"][i]
+                      and errs.get("unexplained", 0) <= bounds["unexplained"]
+                      and errs["opt_rel"] <= bounds["opt_rel"][i]
+                      and all(x["ints_equal"] for x in rs))
+                steps.append({"step": i + 1, "ms": rs[0]["ms"], "loss": rs[0]["loss"],
+                              "single_loss": want["loss"], "errors": errs,
+                              "traffic_rank0": rs[0]["traffic"],
+                              "traffic_total": {k: sum(x["traffic"].get(k, 0) for x in rs)
+                                                for k in rs[0]["traffic"]}})
+                print(f"{tag}, fsdp_pods {fsdp}, step {i + 1}: {rs[0]['ms']:.3f} ms for the "
+                      f"8-rank world (single-device step {rec['single_ms']:.3f} ms); loss "
+                      f"{rs[0]['loss']:.6f} (single {want['loss']:.6f}); "
+                      + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                                  for k, v in errs.items())
+                      + f" (bounds loss {bounds['loss_rel']:.1e}, grad_norm "
+                      f"{bounds['grad_norm_rel']:.1e}, param {bounds['param_abs'][i]:.3e}, "
+                      f"moved {bounds['moved'][i]}"
+                      + (f", unexplained {bounds['unexplained']}" if i == 0 else "")
+                      + f", opt {bounds['opt_rel'][i]:.1e}); bytes rank 0 "
+                      f"sent {json.dumps(rs[0]['traffic'])}")
+                check(ok, f"{tag}, fsdp_pods {fsdp}, step {i + 1}: past a bound: {errs}")
+            rec[f"fsdp_pods_{fsdp}"] = steps
+            del per_rank
+    del state, wants
+    torch.cuda.empty_cache()
+    return rec
+
+
+def restore_onto_mesh(port: Port, device, card: str, directory: str, step: int) -> dict:
+    """13c: `Checkpointer.restore(mesh=)` of a 12c checkpoint onto the
+    8-rank world: every rank's chunks == its slices of the single-device
+    restore; kernel-1 launches == the prediction (each leaf fingerprinted
+    once by the world's rank 0, and once by the single-device restore)."""
+    torch = port.torch
+    full = port.get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2)
+    api = port.build_model(cfg)
+    opt = port.train.make_optimizer(cfg.optimizer, port.train.Schedule())
+    tstate = port.train.train_state
+    like = tstate.skeleton(port.train.init_state(api, opt,
+                                                 torch.Generator(device).manual_seed(0)))
+    mesh = world_mesh(port, device)
+    n = len(port.flatten(like))
+    want = 2 * n
+    ck = port.Checkpointer(directory, device=device)
+    c0 = port.counts()["multihash"]
+    t0 = time.perf_counter()
+    whole = dict(port.flatten(ck.restore(step, like)))
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    where = {}
+    for p, s in port.flatten(tstate.state_shardings(like, mesh, cfg.fsdp_pods)):
+        where[p] = (port.sharding.NamedSharding(mesh, port.sharding.P(None, *s[0].spec))
+                    if isinstance(s, list) else s)
+
+    def rank(r):
+        t0 = time.perf_counter()
+        got = dict(port.flatten(ck.restore(step, like, mesh=mesh, fsdp_pods=cfg.fsdp_pods)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        equal = all(torch.equal(got[p], where[p].local(x, r)) for p, x in whole.items())
+        return equal, secs, sum(x.numel() * x.element_size() for x in got.values())
+
+    out = port.local_world.run(rank, mesh)
+    launches = port.counts()["multihash"] - c0
+    port.tally += want
+    gb = sum(x.numel() * x.element_size() for x in whole.values()) / 1e9
+    print(f"13c restore(mesh=) of the step-{step} checkpoint of 12c ({n} leaves, {gb:.3f} GB) "
+          f"onto the 8-rank world: every rank's chunks == its slices of the single-device "
+          f"restore: {all(o[0] for o in out)}; {max(o[1] for o in out):.3f} s (single-device "
+          f"{whole_s:.3f} s); a rank holds {out[0][2] / 1e9:.3f} GB; multihash launches "
+          f"{launches} (predicted {want}: {n} leaves once by rank 0, once by the single-"
+          f"device restore); card {card}")
+    check(all(o[0] for o in out), "13c: a rank's restored chunks != the slices of the whole")
+    check(launches == want, f"13c: {launches} multihash launches != {want} predicted")
+    rec = {"leaves": n, "gb": gb, "launches": launches, "predicted_launches": want,
+           "seconds": max(o[1] for o in out), "single_seconds": whole_s,
+           "bytes_per_rank": out[0][2], "card": card}
+    del whole
+    torch.cuda.empty_cache()
+    return rec
+
+
+def psum_on_card(port: Port, device, card: str) -> dict:
+    """13d: `hierarchical_psum` on the 8-rank world, integer-valued f32 (so
+    the order of the sum cannot matter): every rank's result == the plain
+    sum of the 4 (pod, data) shards, exactly; the bytes each collective
+    moved."""
+    torch = port.torch
+    mesh = world_mesh(port, device)
+    g = torch.Generator(device).manual_seed(SEED + 13)
+    x = torch.randint(0, 1000, (4 * PSUM_ROWS_13, 1024), generator=g, device=device).float()
+    plain = x.view(4, PSUM_ROWS_13, 1024).sum(0)
+    s = port.sharding.NamedSharding(mesh, port.sharding.P(("pod", "data")))
+
+    def rank(r):
+        traffic = {}
+        y = port.collectives.hierarchical_psum(s.local(x, r), mesh, traffic=traffic)
+        return bool(torch.equal(y, plain)), traffic
+
+    out = port.local_world.run(rank, mesh)
+    print(f"13d hierarchical_psum of ({4 * PSUM_ROWS_13}, 1024) integer-valued f32 over "
+          f"(pod 2, data 2): every rank == the plain sum: {all(o[0] for o in out)}; bytes "
+          f"rank 0 sent {json.dumps(out[0][1])}; card {card}")
+    check(all(o[0] for o in out), "13d: hierarchical_psum != the plain sum")
+    return {"exact": True, "shape": [4 * PSUM_ROWS_13, 1024], "traffic_rank0": out[0][1],
+            "card": card}
+
+
 def main() -> int:
     try:
         import torch
@@ -3011,6 +3368,8 @@ def main() -> int:
         return 2
     device = torch.device("cuda")
     t_start = time.perf_counter()
+    # 12c's checkpoints, which 13c restores onto the mesh
+    train_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     try:
         port = Port()
         with phase("phase 1: device and build"):
@@ -3189,7 +3548,7 @@ def main() -> int:
         with phase(f"phase 12b: training {TRAIN_ARCH} at its published size"):
             train12 = train_full(port, device, card)
         with phase("phase 12c: the Trainer, a fault, checkpoints and serving"):
-            system12 = train_system(port, device, card)
+            system12 = train_system(port, device, card, train_dir.name)
         counts12 = port.counts()
         print(f"phase 12 launches: {counts12} (12c's predicted and the "
               f"pipelines' counted: {port.tally})")
@@ -3197,7 +3556,37 @@ def main() -> int:
               and not counts12["gf_multihash"] + counts12["multilinear"]
               + counts12["gf_multilinear"],
               f"phase 12 launches {counts12} != {port.tally} multihash launches")
+        # phase 13 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        port.tally = 0
+        with phase("phase 13a: the sharding rules at full size"):
+            rules13 = rules_at_full_size(port, card)
+        with phase("phase 13b: the sharded train step on an 8-rank world"):
+            cfg13 = dataclasses.replace(port.get_config(TRAIN_ARCH), n_layers=2)
+            train13 = {TRAIN_ARCH: sharded_train(
+                port, device, card, TRAIN_ARCH, 2, STEPS_13,
+                train_batches(port, device, cfg13, STEPS_13), (True, False))}
+            smoke = port.get_config("llama4_maverick_400b_a17b", smoke=True)
+            g = np.random.default_rng(SEED + 14)
+            train13["llama4_smoke"] = sharded_train(
+                port, device, card, "llama4_maverick_400b_a17b", None, 1,
+                [{"tokens": g.integers(0, smoke.vocab_size, (8, 16)).astype(np.int32),
+                  "labels": g.integers(0, smoke.vocab_size, (8, 16)).astype(np.int32)}],
+                (True,))
+        with phase("phase 13c: restore onto the mesh"):
+            restore13 = restore_onto_mesh(port, device, card, train_dir.name, SYSTEM_STEPS)
+        train_dir.cleanup()
+        with phase("phase 13d: hierarchical_psum on the card"):
+            psum13 = psum_on_card(port, device, card)
+        counts13 = port.counts()
+        print(f"phase 13 launches: {counts13} (13c's predicted and the pipeline's "
+              f"counted: {port.tally})")
+        check(counts13["multihash"] > 0 and counts13["multihash"] == port.tally
+              and not counts13["gf_multihash"] + counts13["multilinear"]
+              + counts13["gf_multilinear"],
+              f"phase 13 launches {counts13} != {port.tally} multihash launches")
         for rec in kernels:
+            rec["phase13_launches"] = counts13[rec["name"]]
             rec["phase12_launches"] = counts12[rec["name"]]
             rec["phase8_launches"] = shard_launches[rec["name"]]
             rec["phase9_launches"] = battery_launches[rec["name"]]
@@ -3234,7 +3623,9 @@ def main() -> int:
              "serving_11": {"parity": parity11, "serve": serving11,
                             "launches": counts11},
              "training_12": {"parity": parity12, "train": train12,
-                             "trainer": system12, "launches": counts12}},
+                             "trainer": system12, "launches": counts12},
+             "sharding_13": {"rules": rules13, "train": train13, "restore": restore13,
+                             "psum": psum13, "launches": counts13}},
             indent=1))
         (out_dir / "quality_report.json").write_text(json.dumps(quality_report,
                                                                 indent=1))
@@ -3248,6 +3639,8 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        train_dir.cleanup()
 
 
 if __name__ == "__main__":

@@ -16,8 +16,13 @@ fingerprint (`hash.tree`, default `TreeSpec`) of its stored bytes; bf16
 leaves are stored as float32 with dtype "bfloat16" and fingerprinted after
 that conversion. A tensor on the card is fingerprinted there before it is
 copied to the host, and `restore` fingerprints each array on the device
-it uploads it to. Sharded restore (`mesh=`, `fsdp_pods=`) waits for the
-port of `parallel/`'s sharding rules.
+it uploads it to.
+
+`restore(mesh=)` is the sharded (elastic) restore: every rank of the live
+process group calls it and gets its own chunks of a `TrainState` under
+`train.train_state.state_shardings` (the placements the sharded step
+takes). The group's rank 0 reads each leaf, uploads and fingerprints it
+once, and scatters the chunks; every rank raises on a mismatch.
 """
 from __future__ import annotations
 
@@ -43,8 +48,6 @@ from ..hash.tree import default_tree_hasher, root_of_leaf_fingerprints
 # `migrate_legacy_manifest(step_dir)` upgrades one in place.
 _SCHEME_TREE = "tree-v1"
 _SCHEME_LEGACY = "stream-v0"
-_NOT_PORTED = ("not ported yet: sharded restore needs parallel/'s "
-               "sharding rules (ROADMAP Queue 1 item 7)")
 
 
 class UnsupportedManifestScheme(RuntimeError):
@@ -266,10 +269,12 @@ class Checkpointer:
         """Load into the structure of `like` (a state of the same paths):
         tensors on `device` (default: the Checkpointer's), bf16 leaves as
         bf16. Each array is uploaded and fingerprinted there; a mismatch
-        or an unreadable array raises `CorruptCheckpointError`."""
-        if mesh is not None or fsdp_pods:
-            raise NotImplementedError(
-                f"Checkpointer.restore(mesh=, fsdp_pods=): {_NOT_PORTED}")
+        or an unreadable array raises `CorruptCheckpointError`.
+
+        With `mesh` (every rank of the live process group calls it): this
+        rank's chunks, a `TrainState` `like` (the reference's layout, e.g.
+        `train_state.skeleton`) placed by `state_shardings(like, mesh,
+        fsdp_pods)`, any other state whole on every rank."""
         device = self.device if device is None else resolve_device(device)
         path = os.path.join(self.dir, f"step_{step}")
         try:
@@ -293,7 +298,60 @@ class Checkpointer:
                     f"(got {want:016x}, manifest {meta['fingerprint']})")
             return t.to(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
 
-        return map_with_paths(load, like)
+        if mesh is None:
+            if fsdp_pods:
+                raise ValueError("fsdp_pods= places leaves on a mesh: pass mesh=")
+            return map_with_paths(load, like)
+        return self._restore_sharded(step, like, manifest, load, device, mesh, fsdp_pods)
+
+    def _restore_sharded(self, step, like, manifest, load, device, mesh, fsdp_pods):
+        """Rank 0 of the live group loads (reads, uploads, fingerprints)
+        each leaf once and scatters its chunks; a failed leaf is broadcast
+        as a flag first, so every rank raises."""
+        import torch.distributed as dist
+
+        from ..models.convert import Stack
+        from ..parallel import sharding as sh
+        from ..train.train_state import TrainState, state_shardings
+
+        sh.device_mesh(mesh)  # the live group holds one rank a mesh position
+        rank = dist.get_rank()
+        if isinstance(like, TrainState):
+            placed = dict(flatten_with_paths(state_shardings(like, mesh, fsdp_pods)))
+        else:
+            placed = {}
+        whole = sh.NamedSharding(mesh, sh.P())
+
+        def sharding_of(p):
+            s = placed.get(p, whole)
+            if isinstance(s, Stack):  # a port ParamTree's per-block layout
+                return sh.NamedSharding(mesh, sh.P(None, *s[0].spec))
+            return s
+
+        def part(p, _leaf):
+            meta = manifest["leaves"][p]
+            s = sharding_of(p)
+            shape = tuple(meta["shape"])
+            dtype = (torch.bfloat16 if meta["dtype"] == "bfloat16"
+                     else torch.from_numpy(np.zeros(0, meta["dtype"])).dtype)
+            ok = torch.ones(1, dtype=torch.int32, device=device)
+            chunks, err = None, None
+            if rank == 0:
+                try:
+                    t = load(p, _leaf)
+                    chunks = [s.local(t, r).contiguous() for r in range(mesh.size)]
+                except CorruptCheckpointError as exc:
+                    ok.zero_()
+                    err = exc
+            dist.broadcast(ok, src=0)
+            if not int(ok.item()):
+                raise err or CorruptCheckpointError(
+                    f"step {step}: leaf {p!r} failed on rank 0")
+            out = torch.empty(s.local_shape(shape), dtype=dtype, device=device)
+            dist.scatter(out, chunks, src=0)
+            return out
+
+        return map_with_paths(part, like)
 
 
 def migrate_legacy_manifest(step_dir: str, tree=None) -> bool:

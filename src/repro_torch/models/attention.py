@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..parallel.sharding import constraint, seq_axis
 from .layers import init_normal
 
 NEG_INF = -1e30
@@ -113,6 +114,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     Tq_p, Tk = Tq + pad_q, Tk_real + pad_k
     kv_len = Tk_real if pad_k else None
     scale = 1.0 / math.sqrt(dh)
+    # context-parallel layout: q T-sharded over 'model', k/v whole
+    q = constraint(q, "batch", seq_axis(Tq_p), None, None)
+    k = constraint(k, "batch", None, None, None)
+    v = constraint(v, "batch", None, None, None)
     q_pos = q_offset + torch.arange(Tq_p, device=q.device)
 
     acc = torch.zeros(B, H, Tq_p, dh, dtype=torch.float32, device=q.device)
@@ -141,14 +146,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 # KV caches
 # ---------------------------------------------------------------------------
 
-def make_linear_cache(B, S, n_kv, d_head, dtype=torch.bfloat16, device=None):
-    """Standard cache: {'k','v'} of (B, S, Hkv, dh). Cache dicts carry NO
-    metadata leaves, so they stack across blocks; ring caches are
-    identified by the presence of a 'pos' buffer."""
+def make_linear_cache(B, S, n_kv, d_head, dtype=torch.bfloat16, device=None,
+                      sp_shard=False):
+    """Standard cache: {'k','v'} of (B, S, Hkv, dh). sp_shard shards the S
+    dim over 'data' (long-context decoding). Cache dicts carry NO metadata
+    leaves, so they stack across blocks; ring caches are identified by the
+    presence of a 'pos' buffer."""
     shape = (B, S, n_kv, d_head)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    k = torch.zeros(shape, dtype=dtype, device=dev)
+    v = torch.zeros(shape, dtype=dtype, device=dev)
+    if sp_shard:
+        k = constraint(k, None, "data", None, None)
+        v = constraint(v, None, "data", None, None)
+    return {"k": k, "v": v}
 
 
 def make_ring_cache(B, W, n_kv, d_head, dtype=torch.bfloat16, device=None):

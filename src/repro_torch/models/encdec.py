@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import constraint
 from . import attention as attn
 from . import layers
 from .layers import ParamTree, init_normal
@@ -50,6 +51,7 @@ def encode(params, cfg, frames, moe_groups=1):
     dtype = compute_dtype(cfg)
     B, S, D = frames.shape
     x = frames.to(dtype) + layers.sinusoidal_positions(S, D, frames.device).to(dtype)[None]
+    x = constraint(x, "batch", None, None)
 
     def layer(p, x):
         return apply_sublayer(p, x, ENC_DESC, cfg, mode="train",
@@ -88,6 +90,7 @@ def decoder_forward(params, cfg, tokens, *, mode, caches=None, enc_out=None,
     x = layers.embed(params["embed"], tokens, dtype)
     pos = pos_offset + torch.arange(T, device=x.device)
     x = x + params["pos_dec"]["w"].to(dtype)[pos][None]
+    x = constraint(x, "batch", None, None)
     def layer(b, p_layer, x):
         if caches is not None:
             c = {k: t[b] for k, t in caches["blocks"]["s0"].items()}  # views
@@ -132,4 +135,4 @@ def encdec_decode_step(params, cfg, caches, token, pos: int, moe_groups=1):
                                      caches=caches, pos_offset=int(pos),
                                      moe_groups=moe_groups)
     W = unembed_matrix(params, cfg, hidden.dtype)
-    return (hidden[:, -1] @ W).float(), caches
+    return constraint((hidden[:, -1] @ W).float(), "batch", "model"), caches

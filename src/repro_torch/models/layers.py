@@ -26,6 +26,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.keys import KeyBuffer
+from ..parallel.sharding import constraint, seq_axis
 
 MASK32 = 0xFFFFFFFF
 
@@ -146,6 +147,8 @@ def mlp(params, x, act="swiglu", dtype=torch.bfloat16):
         h = _silu(linear(params["w_gate"], x, dtype)) * up
     else:
         h = act_fn(act)(up)
+    # context-parallel: hidden stays T-sharded over 'model'
+    h = constraint(h, "batch", seq_axis(h.shape[1]), None)
     return linear(params["w_down"], h, dtype)
 
 
@@ -233,9 +236,10 @@ class _EmbedLookup(torch.autograd.Function):
     def backward(ctx, g):
         (tokens,) = ctx.saved_tensors
         D = g.shape[-1]
-        dw = g.new_zeros((ctx.vocab, D), dtype=torch.float32)
+        dw = constraint(g.new_zeros((ctx.vocab, D), dtype=torch.float32), "model", "data")
         dw.index_put_((tokens.reshape(-1),), g.reshape(-1, D).float(),
                       accumulate=True)
+        dw = constraint(dw, "model", "data")
         return dw.to(g.dtype).to(ctx.w_dtype), None, None
 
 

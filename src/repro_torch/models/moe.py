@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.keys import KeyBuffer
+from ..parallel.sharding import batch_mean, constraint
 from . import layers
 from .layers import MASK32, init_normal
 
@@ -149,6 +150,8 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
         raise ValueError(f"{N} tokens do not split into {G} MoE groups")
     n = N // G
     capacity = capacity_of(n, k, n_experts, capacity_factor)
+    # T gathered across 'model' once (the dispatch groups are data-sharded)
+    x = constraint(x, "batch", None, None)
     xf = x.reshape(N, D)
     aux = {}
     if router == "hash":
@@ -162,9 +165,9 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
         probs = torch.softmax(logits, dim=-1)
         gate_f, idx = torch.topk(probs, k, dim=-1)
         gate = (gate_f / gate_f.sum(-1, keepdim=True).clamp_min(1e-9)).to(dtype)
-        # Switch aux loss: E * sum_e f_e p_e
-        me = torch.nn.functional.one_hot(idx[:, 0], n_experts).float().mean(0)
-        pe = probs.mean(0)
+        # Switch aux loss: E * sum_e f_e p_e, its means over the global batch
+        me = batch_mean(torch.nn.functional.one_hot(idx[:, 0], n_experts).float().mean(0))
+        pe = batch_mean(probs.mean(0))
         aux["balance_loss"] = n_experts * (me * pe).sum()
 
     xg = xf.reshape(G, n, D)
@@ -172,6 +175,10 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
     gate = gate.reshape(G, n, k)
     slot = _group_dispatch(idx, n_experts, capacity)
     buf = _dispatch(xg, idx, slot, n_experts, capacity)               # (G, E, C, D)
+    # decode (T == 1): the group dim replicated, so the expert einsums stay
+    # local against (E: model, F: data)-resident weights
+    g_ax, f_ax = (None, "data") if T == 1 else ("data", None)
+    buf = constraint(buf, g_ax, "model", None, None)
 
     up = torch.einsum("gecd,edf->gecf", buf, params["w_up"]["w"].to(dtype))
     if act == "swiglu":
@@ -179,8 +186,10 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
                                       params["w_gate"]["w"].to(dtype))) * up
     else:
         h = layers._gelu(up)
+    h = constraint(h, g_ax, "model", None, f_ax)
     out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"]["w"].to(dtype))
-    y = _combine(out_buf, idx, slot, gate, capacity).reshape(B, T, D)
+    y = constraint(_combine(out_buf, idx, slot, gate, capacity), "data", None, None)
+    y = y.reshape(B, T, D)
     if "shared" in params:
         y = y + layers.mlp(params["shared"], x, act=act, dtype=dtype)
     return y, aux

@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import constraint
 from . import layers
 from .layers import init_normal
 
@@ -113,6 +114,7 @@ def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
     xz = layers.linear(params["in_proj"], x, dtype)
     xin, z = xz.chunk(2, dim=-1)
     DI = xin.shape[-1]
+    xin = constraint(xin, "batch", None, "model")
 
     # causal depthwise conv over T with carried tail
     if conv_state is None:
@@ -293,6 +295,7 @@ def rwkv6_channel_mix(params, x, *, shift_state=None, dtype=torch.bfloat16,
     xk, last = _token_shift(x, params["mix"][0].to(dtype), shift_state)
     xr, _ = _token_shift(x, params["mix"][1].to(dtype), shift_state)
     k = torch.relu(layers.linear(params["ffn_k"], xk, dtype)).square()
+    k = constraint(k, "batch", None, "model")
     kv = layers.linear(params["ffn_v"], k, dtype)
     out = torch.sigmoid(layers.linear(params["ffn_r"], xr, dtype)) * kv
     if return_state:

@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
+from ..parallel.sharding import constraint, seq_axis
 from . import attention as attn
 from . import layers, ssm
 from . import moe as moe_mod
@@ -255,7 +256,7 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
             if mode == "prefill" and cache is not None:
                 fill = attn.ring_prefill if attn.is_ring(cache) else attn.linear_prefill
                 fill(cache, k, v, T)
-        x = x + attn.out_project(p["attn"], o, dtype)
+        x = x + constraint(attn.out_project(p["attn"], o, dtype), "batch", None, None)
         if desc.cross:  # whisper's decoder: K/V of the encoder output, cached
             hc = _norm_apply(cfg, p["cross_ln"], x)
             qc = attn.q_project(p["cross"], hc, cfg.head_dim, dtype)
@@ -271,7 +272,7 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
             return_state=True)
         if cache is not None:
             _write(cache, conv=conv_s, ssm=ssm_s)
-        x = x + o
+        x = x + constraint(o, "batch", None, None)
     else:  # rwkv: time mix and channel mix, no FFN
         c = cache if cache is not None else {}
         o, (wkv, sh_tm) = ssm.rwkv6_time_mix(
@@ -296,7 +297,8 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
             router=cfg.router, token_ids=token_ids, act=cfg.act, dtype=dtype)
         aux = moe_aux["balance_loss"]
         x = x + o
-    return x, aux
+    seq_sh = seq_axis(x.shape[1]) if cfg.seq_shard_activations else None
+    return constraint(x, "batch", seq_sh, None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -309,17 +311,19 @@ def init_sublayer_cache(cfg, desc: SubDesc, B, S, dtype=torch.bfloat16, device=N
             return attn.make_ring_cache(B, desc.window, cfg.n_kv_heads, cfg.head_dim,
                                         dtype, device)
         return attn.make_linear_cache(B, S, cfg.n_kv_heads, cfg.head_dim, dtype,
-                                      device)
+                                      device, sp_shard=S > 65536)
     dev = resolve_device(device)
     f32 = torch.float32
     if desc.kind == "mamba":
         d_inner = cfg.ssm_expand * cfg.d_model
         d_conv = 4
         return {"conv": torch.zeros(B, d_conv - 1, d_inner, dtype=dtype, device=dev),
-                "ssm": torch.zeros(B, d_inner, cfg.d_state, dtype=f32, device=dev)}
+                "ssm": constraint(torch.zeros(B, d_inner, cfg.d_state, dtype=f32,
+                                              device=dev), None, "model", None)}
     if desc.kind == "rwkv":
         dk = cfg.d_model // cfg.n_heads
-        return {"wkv": torch.zeros(B, cfg.n_heads, dk, dk, dtype=f32, device=dev),
+        return {"wkv": constraint(torch.zeros(B, cfg.n_heads, dk, dk, dtype=f32,
+                                              device=dev), None, "model", None, None),
                 "shift_tm": torch.zeros(B, cfg.d_model, dtype=dtype, device=dev),
                 "shift_cm": torch.zeros(B, cfg.d_model, dtype=dtype, device=dev)}
     raise ValueError(desc.kind)
@@ -364,6 +368,8 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
     if patch_embeds is not None:
         P = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(dtype), x[:, P:]], dim=1)
+    x = constraint(x, "batch", seq_axis(tokens.shape[1]) if cfg.seq_shard_activations
+                   else None, None)
     kw = dict(mode=mode, pos_offset=pos_offset, moe_groups=moe_groups, dtype=dtype,
               token_ids=tokens if cfg.moe and cfg.router == "hash" else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -397,7 +403,7 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
 def _chunk_loss(h, W, labels, weights, z_loss):
     """Summed CE plus z-loss of one (B, C) chunk; its (B, C, V) f32 logits
     exist only inside the call."""
-    logits = (h @ W).float()  # (B, C, V)
+    logits = constraint((h @ W).float(), "batch", None, "model")  # (B, C, V)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels[..., None].long())[..., 0]
     zl = z_loss * lse.square()
@@ -410,6 +416,8 @@ def chunked_ce_loss(params, cfg, hidden, labels, mask=None, z_loss=1e-4):
     reference's `jax.checkpoint` of its chunk body), so no chunk's logits
     outlive it."""
     B, T, D = hidden.shape
+    # T gathered across 'model' once; the CE chunks slice an unsharded T
+    hidden = constraint(hidden, "batch", None, None)
     W = unembed_matrix(params, cfg, hidden.dtype)  # (D, V)
     C = min(cfg.ce_chunk, T)
     if T % C:
@@ -459,4 +467,4 @@ def decode_step(params, cfg, caches, token, pos: int, moe_groups=1):
                                 pos_offset=int(pos), caches=caches,
                                 moe_groups=moe_groups)
     W = unembed_matrix(params, cfg, hidden.dtype)
-    return (hidden[:, -1] @ W).float(), caches
+    return constraint((hidden[:, -1] @ W).float(), "batch", "model"), caches

@@ -28,6 +28,13 @@ parameters for its update, so its statistics are the reference's.
 The schedule's value and the bias corrections are computed in f32 on the
 host from the step, a Python int or a 0-d tensor on the CPU (no device
 sync); the gradient norm and the clip scale stay on the device.
+
+On a rank of the sharded step (`step.jit_train_step`) the parameters,
+gradients and state are the rank's local chunks, and `update` takes
+`shards`: the sums that span chunks go through it (the global gradient
+norm, which counts each element once, and adafactor's row, column and
+update-RMS means over a split dimension); every other operation is
+elementwise and runs on the chunks as it is.
 """
 from __future__ import annotations
 
@@ -99,8 +106,9 @@ class Schedule:
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    # (grads, state, params, step) -> (params, state, metrics), in place
-    update: Callable[[Any, Any, Any, Any], tuple]
+    # (grads, state, params, step, shards=None) -> (params, state, metrics),
+    # in place
+    update: Callable[..., tuple]
 
 
 def _floats(grads) -> list:
@@ -115,9 +123,9 @@ def global_norm(grads) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(ts)).square().sum().sqrt()
 
 
-def _clip_scale(grads, max_norm):
+def _clip_scale(grads, max_norm, shards=None):
     """(min(1, max_norm / norm), norm), 0-d on the gradients' device."""
-    norm = global_norm(grads)
+    norm = global_norm(grads) if shards is None else shards.global_norm(grads)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
@@ -148,10 +156,10 @@ def adamw(schedule: Schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                            for p, x in pairs)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         leaves = reference_leaves(params)
         _check(grads, leaves)
-        scale, gnorm = _clip_scale(grads, clip_norm)  # applied leaf by leaf
+        scale, gnorm = _clip_scale(grads, clip_norm, shards)  # applied leaf by leaf
         lr = schedule(step)
         t = _f32_scalar(step) + 1.0
         bc1 = float(1 - _f32_scalar(b1) ** t)
@@ -212,13 +220,21 @@ def adafactor(schedule: Schedule, eps=1e-30, clip_threshold=1.0,
         return {"f": _nest((leaf.path, _state_of(leaf, st))
                            for leaf in reference_leaves(params))}
 
-    def upd(p, g, st, beta2, lr):
+    def upd(p, g, st, beta2, lr, sums=None):
+        """One leaf's update; `sums` (a rank's chunk) spans the chunks of
+        the means."""
         g = g.float()
         g2 = g * g + eps
         if _factored(p.shape):
-            vr = beta2 * st["vr"] + (1 - beta2) * g2.mean(dim=-1)   # (..., n)
-            vc = beta2 * st["vc"] + (1 - beta2) * g2.mean(dim=-2)   # (..., m)
-            denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+            if sums is None:
+                r_mean, c_mean = g2.mean(dim=-1), g2.mean(dim=-2)
+            else:
+                r_mean, c_mean = sums.mean(g2, -1), sums.mean(g2, -2)
+            vr = beta2 * st["vr"] + (1 - beta2) * r_mean             # (..., n)
+            vc = beta2 * st["vc"] + (1 - beta2) * c_mean             # (..., m)
+            vr_mean = (vr.mean(dim=-1, keepdim=True) if sums is None
+                       else sums.mean(vr, -1, param_dim=-2, keepdim=True))
+            denom = torch.clamp(vr_mean, min=eps)
             # rank-1 reconstruction: v ~ (vr/denom)[..., :, None] * vc[..., None, :]
             u = (g * torch.rsqrt(vr / denom + eps)[..., :, None]
                  * torch.rsqrt(vc + eps)[..., None, :])
@@ -228,15 +244,16 @@ def adafactor(schedule: Schedule, eps=1e-30, clip_threshold=1.0,
             u = g / torch.sqrt(v + eps)
             new_st = {"v": v}
         # update clipping (RMS <= clip_threshold), over the whole leaf
-        rms = torch.sqrt(torch.mean(u * u) + eps)
+        rms = torch.sqrt((torch.mean(u * u) if sums is None else sums.mean_all(u * u))
+                         + eps)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         return p - lr * (u + weight_decay * p.float()), new_st
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         leaves = reference_leaves(params)
         _check(grads, leaves)
-        scale, gnorm = _clip_scale(grads, clip_norm)  # applied leaf by leaf
+        scale, gnorm = _clip_scale(grads, clip_norm, shards)  # applied leaf by leaf
         lr = schedule(step)
         t = _f32_scalar(step) + 1.0
         beta2 = float(1.0 - t ** (-decay_rate))
@@ -245,7 +262,8 @@ def adafactor(schedule: Schedule, eps=1e-30, clip_threshold=1.0,
                 continue
             stack = (lambda ts: torch.stack(ts)) if leaf.stacked else (lambda ts: ts[0])
             st = _get(state["f"], leaf.path)
-            p2, new_st = upd(stack(leaf.tensors), stack(g) * scale, st, beta2, float(lr))
+            p2, new_st = upd(stack(leaf.tensors), stack(g) * scale, st, beta2, float(lr),
+                             None if shards is None else shards.leaf(leaf.path))
             for k, v in new_st.items():
                 st[k].copy_(v)
             for p, row in zip(leaf.tensors, _rows(p2, leaf)):

@@ -1,4 +1,6 @@
-"""The port's gradients and train step (`repro_torch.train`) against the
+"""Shared cases of the `tests/test_torch_train_*.py` files, one file a
+family (so that `--dist loadfile` spreads them over the workers): the
+port's gradients and train step (`repro_torch.train`) against the
 reference's `jax.value_and_grad` and `make_train_step`, on the CPU.
 
 One SMOKE config of each family, in f32 (`dtype="float32"`), with the
@@ -43,7 +45,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from _torch_port import train_states_close
@@ -120,44 +121,6 @@ def weights(jc, tc, seed=1, train=True):
                                     device="cpu", train=train)
 
 
-@pytest.mark.parametrize("name", FAMILIES)
-def test_loss_and_grads_match_reference(name):
-    _, tc = configs(name)
-    init, batches, jl, jg, _, _ = reference_steps(name)
-    tparams = from_reference(tc, init, device="cpu").params
-    tl, tg = reference_grads(tbuild(tc), tparams, batches[0])
-    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
-    assert_grads_close(tg, jg, GRAD_RTOL.get(name, 1e-5))
-
-
-def test_bf16_grads_match_reference():
-    jc, tc = configs("mistral_nemo_12b", "bfloat16")
-    japi, tapi = jbuild(jc), tbuild(tc)
-    jparams, tparams = weights(jc, tc)
-    batch = make_batch(jc, 0)
-    jl, jg = ref_grads(japi, jparams, on_jax(batch))
-    tl, tg = reference_grads(tapi, tparams, batch)
-    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-3)
-    assert_grads_close(tg, jg, BF16_GRAD)
-
-
-def test_remat_gives_equal_grads():
-    """`cfg.remat` recomputes each block in the backward: the same
-    gradients, bit for bit, for the LM blocks and whisper's layers."""
-    for name in ("granite_moe_hash", "whisper_large_v3"):
-        _, tc = configs(name)
-        batch = make_batch(tc, 2)
-        grads = []
-        for remat in (False, True):
-            cfg = dataclasses.replace(tc, remat=remat)
-            params = tbuild(cfg).init(torch.Generator().manual_seed(3), train=True)
-            grads.append(reference_grads(tbuild(cfg), params, batch))
-        (l0, g0), (l1, g1) = grads
-        assert torch.equal(l0, l1)
-        for path in g0:
-            assert torch.equal(g0[path], g1[path]), (name, path)
-
-
 @functools.lru_cache(maxsize=None)
 def reference_steps(name, n_steps=3, **kw):
     """n_steps of the reference's jitted make_train_step(**kw) from its
@@ -224,16 +187,48 @@ def assert_steps_close(jstate, tstate, metrics, metric_rtol=1e-4, state_rtol=1e-
     assert flips <= FLIPS, flips
 
 
-@pytest.mark.parametrize("name", FAMILIES)
-def test_three_steps_match_reference(name):
-    assert_steps_close(*run_steps(name))
+def check_loss_and_grads(name):
+    _, tc = configs(name)
+    init, batches, jl, jg, _, _ = reference_steps(name)
+    tparams = from_reference(tc, init, device="cpu").params
+    tl, tg = reference_grads(tbuild(tc), tparams, batches[0])
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert_grads_close(tg, jg, GRAD_RTOL.get(name, 1e-5))
 
 
-def test_grad_accum_matches_reference():
-    assert_steps_close(*run_steps("granite_moe_1b_a400m", grad_accum=2))
+def check_bf16_grads():
+    jc, tc = configs("mistral_nemo_12b", "bfloat16")
+    japi, tapi = jbuild(jc), tbuild(tc)
+    jparams, tparams = weights(jc, tc)
+    batch = make_batch(jc, 0)
+    jl, jg = ref_grads(japi, jparams, on_jax(batch))
+    tl, tg = reference_grads(tapi, tparams, batch)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-3)
+    assert_grads_close(tg, jg, BF16_GRAD)
 
 
-def test_compress_pod_grads_matches_reference():
+def check_remat_gives_equal_grads():
+    """`cfg.remat` recomputes each block in the backward: the same
+    gradients, bit for bit, for the LM blocks and whisper's layers."""
+    for name in ("granite_moe_hash", "whisper_large_v3"):
+        _, tc = configs(name)
+        batch = make_batch(tc, 2)
+        grads = []
+        for remat in (False, True):
+            cfg = dataclasses.replace(tc, remat=remat)
+            params = tbuild(cfg).init(torch.Generator().manual_seed(3), train=True)
+            grads.append(reference_grads(tbuild(cfg), params, batch))
+        (l0, g0), (l1, g1) = grads
+        assert torch.equal(l0, l1)
+        for path in g0:
+            assert torch.equal(g0[path], g1[path]), (name, path)
+
+
+def check_three_steps(name, **kw):
+    assert_steps_close(*run_steps(name, **kw))
+
+
+def check_compress_pod_grads():
     """int8 compression in the step, with the reference's bits (its
     original Threefry layout). mistral has no integer leaves: the
     reference's compression raises on a key plane's float0 gradient."""

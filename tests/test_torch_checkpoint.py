@@ -178,9 +178,15 @@ def test_restore_errors(tmp_path):
     ck.save(1, _torch_state())
     with pytest.raises(KeyError):
         ck.restore(1, {"different": torch.zeros(3)})
-    for kw in ({"mesh": object()}, {"fsdp_pods": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            ck.restore(1, _torch_state(), **kw)
+    # a mesh restore runs on a live process group of one rank a mesh
+    # position (tests/test_torch_restore_mesh.py); fsdp_pods needs a mesh
+    from repro_torch.parallel import Mesh
+
+    mesh = Mesh((torch.device("cpu"),) * 2, ("data", "model"), (2, 1))
+    with pytest.raises(RuntimeError, match="live process group"):
+        ck.restore(1, _torch_state(), mesh=mesh)
+    with pytest.raises(ValueError, match="pass mesh="):
+        ck.restore(1, _torch_state(), fsdp_pods=True)
     man_path = tmp_path / "step_1" / "manifest.json"
     man = json.loads(man_path.read_text())
     man["leaves"]["params/w"]["fingerprint"] = "0" * 16

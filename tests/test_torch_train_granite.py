@@ -1,0 +1,19 @@
+"""granite_moe_1b_a400m's gradients and train steps against the reference's, on the
+CPU (cases and tolerances: `tests/_torch_train_cases.py`)."""
+import pytest
+
+from _torch_train_cases import check_loss_and_grads, check_three_steps
+
+
+@pytest.mark.parametrize("name", ["granite_moe_1b_a400m"])
+def test_loss_and_grads_match_reference(name):
+    check_loss_and_grads(name)
+
+
+@pytest.mark.parametrize("name", ["granite_moe_1b_a400m"])
+def test_three_steps_match_reference(name):
+    check_three_steps(name)
+
+
+def test_grad_accum_matches_reference():
+    check_three_steps("granite_moe_1b_a400m", grad_accum=2)
