@@ -274,6 +274,26 @@ check exits non-zero. The last line is the JSON device record.
        restore, kernel-1 launches == the prediction;
     d. `hierarchical_psum` of integer-valued f32 on the world == the plain
        sum, exactly.
+14. the dry run (`launch/dryrun.py`, `launch/op_analysis.py`,
+    `parallel/fake_world.py`, `serve/sharded.py`), a path of its own after
+    phase 13 (counts set to 0 again; it launches no kernel):
+    a. 12b's cell under the op census around one real step on the card,
+       then through the dry run on a fake world of one rank: dot FLOPs
+       and transcendentals equal exactly, the dry run's peak within 10 %
+       of the card's `max_memory_allocated` over the step;
+    b. 13b's cell on a fake (2, 2, 2) world: rank 0 sends 843,114,591
+       bytes, as 13b read, and its collectives equal the census of one
+       real step of the same cell on 8 threaded ranks on the card;
+    c. sharded serving (DTensors at the serving placements, caches at
+       `cache_shardings`) on a threaded (data 2, model 2) world on the
+       card: a 512-token prefill and 8 ticks of mistral_nemo_12b and
+       granite_moe_hash (2 layers) and gemma3_27b (6 layers, B 1: the
+       long-context layout) == the single-device port within 2e-3 in f32;
+       the census of a prefill and a decode cell on that world == the dry
+       run's on a fake world of its shape;
+    d. `python -m repro_torch.launch.dryrun` in subprocesses on production
+       cells of each shape kind, both meshes, and a skipped cell: no
+       `error` record.
 """
 from __future__ import annotations
 
@@ -387,6 +407,9 @@ class Port:
         from repro_torch.models.convert import nested
         from repro_torch.parallel import Mesh, collectives, local_world
         from repro_torch.parallel import sharding
+        from repro_torch.configs import ShapeSpec
+        from repro_torch.launch import dryrun, op_analysis
+        from repro_torch.serve import sharded as serve_sharded
 
         self.torch, self.hostref, self.limbs = torch, hostref, limbs
         self.gf, self.keys, self.streaming = gf, keys, streaming
@@ -413,6 +436,8 @@ class Port:
         self.make_production_mesh, self.Mesh = make_production_mesh, Mesh
         self.collectives, self.local_world, self.sharding = (collectives, local_world,
                                                              sharding)
+        self.ShapeSpec, self.dryrun, self.op_analysis = ShapeSpec, dryrun, op_analysis
+        self.serve_sharded = serve_sharded
         self.tally = 0  # engine launches `launched` has checked
         self.wrappers = {"multihash": mhk, "gf_multihash": gfmh,
                          "multilinear": mlk, "gf_multilinear": gfk}
@@ -3352,6 +3377,285 @@ def psum_on_card(port: Port, device, card: str) -> dict:
             "card": card}
 
 
+# --------------------------------------------------------------------------
+# phase 14: the dry run (fake worlds, the op census, sharded serving)
+# --------------------------------------------------------------------------
+
+# 14a: phase 12b's cell on a world of one rank
+PEAK_TOL_14 = 0.10
+# 14b: 13b's cell (2 layers, f32, fsdp_pods) and what S3/S4 read at rank 0
+TRAFFIC_13B = 843_114_591
+# 14c: sharded serving on a threaded (data 2, model 2) world on the card
+WORLD_14 = ((2, 2), ("data", "model"))
+# (arch, n_layers cut to, batch; B 1 is the long-context layout): gemma3
+# keeps one block of 5 sliding-window (ring cache) layers and 1 global one
+SERVE_14 = (("mistral_nemo_12b", 2, 4), ("granite_moe_hash", 2, 4),
+            ("gemma3_27b", 6, 1))
+PREFILL_14, TICKS_14 = 512, 8
+# 14d: the CLI on production cells, one of each shape kind, both meshes,
+# and a skipped cell
+CLI_14 = (("granite_moe_1b_a400m", "train_4k"), ("granite_moe_1b_a400m", "prefill_32k"),
+          ("granite_moe_1b_a400m", "decode_32k"), ("rwkv6_1_6b", "long_500k"),
+          ("mistral_nemo_12b", "long_500k"))
+CLI_TIMEOUT_14 = 120  # seconds for all of them (one process a cell, at once)
+
+
+def train_specs(port, B: int, T: int) -> dict:
+    """A packed HashPipeline batch's entries (tokens, labels, a mask)."""
+    torch = port.torch
+    return {"tokens": ((B, T), torch.int32), "labels": ((B, T), torch.int32),
+            "mask": ((B, T), torch.float32)}
+
+
+def census_vs_card(port: Port, device, card: str) -> dict:
+    """14a: phase 12b's cell (granite_moe_hash as published, B 8 x T 1,024)
+    under the census around one real step on the card (after a warm-up
+    step), then through the dry run on a fake world of one rank: dot
+    FLOPs and transcendentals equal exactly; the dry run's peak within
+    PEAK_TOL_14 of `max_memory_allocated` over the real step (less what
+    earlier phases still hold)."""
+    import gc
+
+    torch = port.torch
+    cfg = port.get_config(TRAIN_ARCH)
+    shape = port.ShapeSpec("train_8x1024", "train", TRAIN_T, TRAIN_B)
+    mesh = port.Mesh((device,), ("data", "model"), (1, 1))
+    api = port.build_model(cfg)
+    opt = port.train.make_optimizer(cfg.optimizer, port.train.Schedule(**TRAIN_SCHEDULE))
+    gc.collect()  # what earlier phases left is not freed inside the step
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = port.train.init_state(api, opt, torch.Generator(device).manual_seed(SEED))
+    batches = train_batches(port, device, cfg, 2)
+    step = port.train.make_train_step(api, opt)
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with port.op_analysis.Census((state, batches[1])) as c:
+        state, _ = step(state, batches[1])
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    real = c.totals()
+    del state, batches, step
+    torch.cuda.empty_cache()
+    dry = port.dryrun.run_cell(TRAIN_ARCH, shape.name, "1x1", mesh=mesh, shape=shape,
+                               cfg=cfg, batch_specs=train_specs(port, TRAIN_B, TRAIN_T))
+    d = dry["corrected"]
+    rec = {"dry": {k: d[k] for k in ("dot_flops_per_device", "transcendentals_per_device",
+                                     "peak_bytes", "argument_bytes", "n_ops")},
+           "real": {k: real[k] for k in ("dot_flops_per_device",
+                                         "transcendentals_per_device", "peak_bytes",
+                                         "argument_bytes", "n_ops")},
+           "max_memory_allocated": peak, "trace_s": dry["trace_s"], "card": card}
+    rec["peak_rel"] = (d["peak_bytes"] - peak) / peak
+    print(f"14a {TRAIN_ARCH} B {TRAIN_B} x T {TRAIN_T}: dry run {d['dot_flops_per_device']:.6e} "
+          f"dot FLOPs, {d['transcendentals_per_device']:.6e} transcendentals, peak "
+          f"{d['peak_bytes'] / 1e9:.3f} GB ({d['argument_bytes'] / 1e9:.3f} GB arguments), "
+          f"{d['n_ops']} ops, trace {dry['trace_s']} s; census of the real step "
+          f"{real['dot_flops_per_device']:.6e}, {real['transcendentals_per_device']:.6e}, "
+          f"peak {real['peak_bytes'] / 1e9:.3f} GB, {real['n_ops']} ops; the card's "
+          f"max_memory_allocated over the step {peak / 1e9:.3f} GB (dry run / card - 1 = "
+          f"{rec['peak_rel']:+.4f}, bound {PEAK_TOL_14})")
+    check(d["dot_flops_per_device"] == real["dot_flops_per_device"]
+          and d["transcendentals_per_device"] == real["transcendentals_per_device"],
+          "14a: the dry run's FLOPs or transcendentals != the real step's census")
+    check(abs(rec["peak_rel"]) <= PEAK_TOL_14,
+          f"14a: the dry run's peak is {rec['peak_rel']:+.4f} off the card's")
+    return rec
+
+
+def _counts(coll: dict) -> dict:
+    return {k: v["count"] for k, v in coll.items() if isinstance(v, dict)}
+
+
+def census_vs_13b(port: Port, device, card: str) -> dict:
+    """14b: 13b's cell -- granite_moe_hash at full width cut to 2 layers,
+    f32, fsdp_pods, 8 x 1,024 tokens a step -- on a fake (2, 2, 2) world:
+    rank 0 sends TRAFFIC_13B bytes (13b's reading), and its collective
+    counts and bytes equal the census's around one real step of the same
+    cell on 8 threaded ranks on the card (the step's own `traffic` too)."""
+    torch = port.torch
+    cfg = dataclasses.replace(port.get_config(TRAIN_ARCH), n_layers=2, dtype="float32",
+                              fsdp_pods=True)
+    shape = port.ShapeSpec("train_8x1024", "train", TRAIN_T, TRAIN_B)
+    mesh = world_mesh(port, device)
+    specs = train_specs(port, TRAIN_B, TRAIN_T)
+    dry = port.dryrun.run_cell(TRAIN_ARCH, shape.name, "2x2x2", mesh=mesh, shape=shape,
+                               cfg=cfg, batch_specs=specs)
+
+    def rank(r):
+        return port.dryrun.run_cell(TRAIN_ARCH, shape.name, "2x2x2", mesh=mesh,
+                                    shape=shape, cfg=cfg, batch_specs=specs, fake=False)
+
+    with f32_products(torch):
+        real = port.local_world.run(rank, mesh)
+    torch.cuda.empty_cache()
+    dc, rc = dry["collectives"], real[0]["collectives"]
+    rec = {"dry": dc, "real_rank0": rc, "trace_s": dry["trace_s"], "card": card,
+           "dry_flops": dry["cost"]["flops"], "real_flops": real[0]["cost"]["flops"]}
+    print(f"14b {cfg.name} (2 layers, f32, fsdp_pods) on (2, 2, 2): the fake world's "
+          f"rank 0 sends {dc['traffic']} bytes (13b read {TRAFFIC_13B}); collectives "
+          f"{json.dumps(_counts(dc))}, result bytes {dc['total_bytes']}; the real world's "
+          f"rank 0 census: {rc['traffic']} bytes sent, {json.dumps(_counts(rc))}, result "
+          f"bytes {rc['total_bytes']}; trace {dry['trace_s']} s")
+    check(dc["traffic"] == TRAFFIC_13B, f"14b: rank 0 sends {dc['traffic']} bytes, "
+          f"not 13b's {TRAFFIC_13B}")
+    check(_counts(dc) == _counts(rc) and dc["total_bytes"] == rc["total_bytes"]
+          and dc["traffic"] == rc["traffic"],
+          "14b: the fake world's collectives != the real world's census")
+    check(dry["cost"]["flops"] == real[0]["cost"]["flops"],
+          "14b: the fake world's FLOPs != the real world's")
+    return rec
+
+
+def sharded_serving(port: Port, device, card: str, name: str, n_layers: int,
+                    B: int) -> dict:
+    """14c: prefill of PREFILL_14 tokens and TICKS_14 decode ticks on a
+    threaded (data 2, model 2) world on the card, weights at the serving
+    placements (DTensors), f32 with TF32 off: every rank's gathered logits
+    == the single-device port's within PARITY_TOL. Then the census of a
+    prefill cell and a decode cell on the real world == the same cells'
+    dry run on a fake world of that shape (mesh on the card)."""
+    import gc
+
+    torch = port.torch
+    ss = port.serve_sharded
+    full = port.get_config(name)
+    cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
+    api = port.build_model(cfg)
+    dims, names = WORLD_14
+    mesh = port.Mesh((device,) * math.prod(dims), names, dims)
+    long_ctx = B == 1
+    groups = math.gcd(B, dims[0])
+    tag = (f"14c {name} (n_layers {full.n_layers} -> {n_layers}, f32), B {B}"
+           + (" (long_ctx: S over data + model)" if long_ctx else ""))
+    g = np.random.default_rng(SEED + 140)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab_size, (B, PREFILL_14))
+                            .astype(np.int32)).to(device)
+    ticks = [torch.from_numpy(g.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32))
+             .to(device) for _ in range(TICKS_14)]
+    S = PREFILL_14 + TICKS_14
+    with f32_products(torch):
+        params = api.init(torch.Generator(device).manual_seed(SEED))
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(params, {"tokens": toks}, cache_len=S,
+                                     moe_groups=groups)
+        wants = [logits]
+        for i, t in enumerate(ticks):
+            logits, caches = api.decode_step(params, caches, t, PREFILL_14 + i,
+                                             moe_groups=groups)
+            wants.append(logits)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        del caches
+
+        def on_mesh(x, r):
+            return ss.replicated(x, mesh) if long_ctx else ss.shard_batch(x, mesh, r)
+
+        def rank(r):
+            p = ss.shard_params(params, mesh, r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, c = ss.prefill(api, p, {"tokens": on_mesh(toks, r)},
+                               cache_len=S, moe_groups=groups)
+            out = [lg.full_tensor()]
+            for i, t in enumerate(ticks):
+                lg, c = ss.decode_step(api, p, c, on_mesh(t, r), PREFILL_14 + i,
+                                       moe_groups=groups)
+                out.append(lg.full_tensor())
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        res = port.local_world.run(rank, mesh)
+        err = max(agree(port, got, want, f"{tag}: rank {r} step {i}")
+                  for r, (outs, _) in enumerate(res) for i, (got, want)
+                  in enumerate(zip(outs, wants)))
+        world_s = max(s for _, s in res)
+        del res, params, wants
+        gc.collect()  # the ranks' frames hold their chunks in cycles
+        torch.cuda.empty_cache()
+        # the census of the real world against the dry run of the same cells
+        cells = {"prefill": port.ShapeSpec("prefill_14", "prefill", PREFILL_14, B),
+                 "decode": port.ShapeSpec("decode_14", "decode", S, B)}
+        census = {}
+        for kind, shape in cells.items():
+            dry = port.dryrun.run_cell(name, shape.name, "2x2", mesh=mesh, shape=shape,
+                                       cfg=cfg)
+            real = port.local_world.run(
+                lambda r, shape=shape: port.dryrun.run_cell(
+                    name, shape.name, "2x2", mesh=mesh, shape=shape, cfg=cfg, fake=False),
+                mesh)
+            d, w = dry["collectives"], real[0]["collectives"]
+            same = (_counts(d) == _counts(w) and d["total_bytes"] == w["total_bytes"]
+                    and dry["cost"]["flops"] == real[0]["cost"]["flops"])
+            census[kind] = {"dry": {"flops": dry["cost"]["flops"], "collectives": d,
+                                    "trace_s": dry["trace_s"]},
+                            "real_rank0": {"flops": real[0]["cost"]["flops"],
+                                           "collectives": w}, "equal": same}
+            print(f"{tag}: {kind} cell census, fake world {dry['cost']['flops']:.6e} FLOPs, "
+                  f"{json.dumps(_counts(d))}, {d['total_bytes']} result bytes; real world "
+                  f"rank 0 {real[0]['cost']['flops']:.6e}, {json.dumps(_counts(w))}, "
+                  f"{w['total_bytes']} (trace {dry['trace_s']} s)")
+            check(same, f"{tag}: the {kind} cell's census differs between the fake "
+                  "and the real world")
+            torch.cuda.empty_cache()
+    print(f"{tag}: every rank's logits == the single-device port within {PARITY_TOL} "
+          f"(max abs err {err:.3e}); prefill {PREFILL_14} + {TICKS_14} ticks: world "
+          f"{world_s:.3f} s, single device {single_s:.3f} s")
+    return {"config": tag, "max_abs_err": err, "world_s": world_s, "single_s": single_s,
+            "census": census, "card": card}
+
+
+def dryrun_cli(port: Port, card: str, out_dir: Path) -> dict:
+    """14d: `python -m repro_torch.launch.dryrun` on the CLI_14 cells, both
+    meshes, the mesh on the card, one process a cell, all at once, within
+    CLI_TIMEOUT_14: each cell's record; an `error` record or a missing
+    skip record fails the phase."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {(arch, shape): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+         shape, "--mesh", "both", "--out", str(out_dir), "--device", "cuda"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, shape in CLI_14}
+    try:
+        for (arch, shape), proc in procs.items():
+            try:
+                _, err = proc.communicate(
+                    timeout=max(1.0, CLI_TIMEOUT_14 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                check(False, f"14d: the dry run of {arch} x {shape} ran past "
+                      f"{CLI_TIMEOUT_14} s")
+            check(proc.returncode == 0, f"14d: the dry run of {arch} x {shape} exited "
+                  f"{proc.returncode}: {err[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    recs = {}
+    for arch, shape in CLI_14:
+        for mk in ("single", "multi"):
+            r = json.loads((out_dir / f"{arch}__{shape}__{mk}.json").read_text())
+            recs[f"{arch}__{shape}__{mk}"] = r
+            check(r["status"] in ("ok", "skipped"), f"14d {arch} x {shape} x {mk}: "
+                  f"{r.get('error')}")
+            if r["status"] == "skipped":
+                print(f"14d {arch} x {shape} x {mk}: skipped ({r['reason']})")
+                continue
+            m, c = r["memory"], r["collectives"]
+            print(f"14d {arch} x {shape} x {mk}: {r['status']}, arguments "
+                  f"{m['argument_bytes'] / 1e9:.3f} GB a rank, temp "
+                  f"{m['temp_bytes'] / 1e9:.3f} GB, {r['cost']['flops']:.4e} dot FLOPs a "
+                  f"rank, collectives {c['total_bytes'] / 1e6:.1f} MB a rank (results; sent "
+                  f"{c['traffic'] / 1e6:.1f} MB), trace {r['trace_s']} s")
+    check(any(r["status"] == "skipped" for r in recs.values()), "14d: no skip record")
+    print(f"14d: {len(recs)} records in {wall:.1f} s wall ({card})")
+    return {"records": recs, "wall_s": wall, "card": card}
+
+
 def main() -> int:
     try:
         import torch
@@ -3585,7 +3889,24 @@ def main() -> int:
               and not counts13["gf_multihash"] + counts13["multilinear"]
               + counts13["gf_multilinear"],
               f"phase 13 launches {counts13} != {port.tally} multihash launches")
+        # phase 14 is a path of its own: its counts start at 0 here
+        port.reset_counts()
+        with phase("phase 14a: the census against the card"):
+            dry14 = {"census_vs_card": census_vs_card(port, device, card)}
+        with phase("phase 14b: collective bytes against 13b"):
+            dry14["census_vs_13b"] = census_vs_13b(port, device, card)
+        dry14["serving"] = {}
+        for name, n_layers, B in SERVE_14:
+            with phase(f"phase 14c: sharded serving, {name}, B {B}"):
+                dry14["serving"][f"{name}_B{B}"] = sharded_serving(port, device, card,
+                                                                   name, n_layers, B)
+        with phase("phase 14d: the dry run's CLI on production cells"):
+            dry14["cli"] = dryrun_cli(port, card, ROOT / "chiprun_out" / "dryrun_14")
+        counts14 = port.counts()
+        print(f"phase 14 launches: {counts14} (the dry run launches no kernel)")
+        check(not any(counts14.values()), f"phase 14 launched kernels: {counts14}")
         for rec in kernels:
+            rec["phase14_launches"] = counts14[rec["name"]]
             rec["phase13_launches"] = counts13[rec["name"]]
             rec["phase12_launches"] = counts12[rec["name"]]
             rec["phase8_launches"] = shard_launches[rec["name"]]
@@ -3625,7 +3946,8 @@ def main() -> int:
              "training_12": {"parity": parity12, "train": train12,
                              "trainer": system12, "launches": counts12},
              "sharding_13": {"rules": rules13, "train": train13, "restore": restore13,
-                             "psum": psum13, "launches": counts13}},
+                             "psum": psum13, "launches": counts13},
+             "dryrun_14": dry14},
             indent=1))
         (out_dir / "quality_report.json").write_text(json.dumps(quality_report,
                                                                 indent=1))

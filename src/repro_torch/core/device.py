@@ -11,13 +11,14 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a `torch.device`; None is ``cuda``, which must exist."""
+    """``device`` as a `torch.device`; None is ``cuda``, which must exist.
+    The meta device (shapes only) passes too."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

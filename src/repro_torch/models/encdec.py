@@ -16,13 +16,14 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import constraint
+from ..parallel.sharding import (NamedSharding, cache_pspec, constraint, current_mesh,
+                                 live, use_mesh)
 from . import attention as attn
 from . import layers
 from .layers import ParamTree, init_normal
 from .transformer import (SubDesc, _norm_apply, _norm_init, apply_sublayer,
                           chunked_ce_loss, compute_dtype, init_sublayer,
-                          init_sublayer_cache, unembed_matrix)
+                          init_sublayer_cache, place_caches, unembed_matrix)
 
 ENC_DESC = SubDesc(kind="attn", causal=False, ffn="dense")
 DEC_DESC = SubDesc(kind="attn", causal=True, ffn="dense", cross=True)
@@ -68,16 +69,41 @@ def _cross_kv(p_layer, cfg, enc_out):
                            enc_out.dtype)
 
 
+def decoder_cache_shapes(cfg, B, S, dtype) -> dict:
+    """The decoder caches' tree as meta tensors (shapes only): what
+    `init_decoder_caches` makes for B rows of S positions."""
+    n = cfg.n_layers
+    with use_mesh(None):
+        base = init_sublayer_cache(cfg, DEC_DESC, B, S, dtype, "meta")
+    cache = {k: v.expand(n, *v.shape) for k, v in base.items()}
+    cross = (n, B, cfg.encoder_positions, cfg.n_kv_heads, cfg.head_dim)
+    cache.update({name: torch.empty(cross, dtype=dtype, device="meta")
+                  for name in ("cross_k", "cross_v")})
+    return {"blocks": {"s0": cache}}
+
+
 def init_decoder_caches(params, cfg, enc_out, B, S):
     """Per layer, stacked (n_layers, ...) as the reference stacks them: the
     self-attention's linear cache and the cross K/V of `enc_out`."""
     dtype = enc_out.dtype
-    base = init_sublayer_cache(cfg, DEC_DESC, B, S, dtype, enc_out.device)
-    n = len(params["blocks"])
-    cache = {k: v.expand(n, *v.shape).clone() for k, v in base.items()}
+    mesh = current_mesh()
+    sharded = live(mesh)
+    if sharded:  # under a live mesh, each rank makes its chunk of the cache
+        shapes = decoder_cache_shapes(cfg, B, S, dtype)
+        for name in ("cross_k", "cross_v"):
+            del shapes["blocks"]["s0"][name]
+        cache = place_caches(shapes, enc_out.device, mesh, B == 1)["blocks"]["s0"]
+    else:
+        n = len(params["blocks"])
+        base = init_sublayer_cache(cfg, DEC_DESC, B, S, dtype, enc_out.device)
+        cache = {k: v.expand(n, *v.shape).clone() for k, v in base.items()}
     kv = [_cross_kv(p, cfg, enc_out) for p in params["blocks"]]
-    cache["cross_k"] = torch.stack([k for k, _ in kv])
-    cache["cross_v"] = torch.stack([v for _, v in kv])
+    for i, name in enumerate(("cross_k", "cross_v")):
+        t = torch.stack([pair[i] for pair in kv])
+        if sharded:
+            spec = cache_pspec(f"blocks/s0/{name}", t.shape, B == 1, mesh)
+            t = t.redistribute(t.device_mesh, NamedSharding(mesh, spec).placements(t.ndim))
+        cache[name] = t
     return {"blocks": {"s0": cache}}
 
 

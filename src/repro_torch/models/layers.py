@@ -26,7 +26,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.keys import KeyBuffer
-from ..parallel.sharding import constraint, seq_axis
+from ..parallel.sharding import constraint, is_dtensor, seq_axis
 
 MASK32 = 0xFFFFFFFF
 
@@ -148,7 +148,7 @@ def mlp(params, x, act="swiglu", dtype=torch.bfloat16):
     else:
         h = act_fn(act)(up)
     # context-parallel: hidden stays T-sharded over 'model'
-    h = constraint(h, "batch", seq_axis(h.shape[1]), None)
+    h = constraint(h, "batch", seq_axis(h.shape[1], h), None)
     return linear(params["w_down"], h, dtype)
 
 
@@ -161,10 +161,17 @@ def rope_freqs(d_head: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float32) / d_head))
 
 
-@functools.lru_cache(maxsize=64)
 def _inv_freqs(d_head: int, theta: float, device: torch.device) -> torch.Tensor:
     """`rope_freqs` on `device`, uploaded once per (width, theta, device)
-    rather than at every layer of every step."""
+    rather than at every layer of every step; under `FakeTensorMode` (the
+    dry run) a fake tensor each call, which the cache must not keep."""
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return torch.from_numpy(rope_freqs(d_head, theta)).to(device)
+    return _inv_freqs_cached(d_head, theta, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _inv_freqs_cached(d_head: int, theta: float, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rope_freqs(d_head, theta)).to(device)
 
 
@@ -230,6 +237,17 @@ class _EmbedLookup(torch.autograd.Function):
         ctx.save_for_backward(tokens)
         ctx.w_dtype = w.dtype
         ctx.vocab = w.shape[0]
+        if is_dtensor(w):
+            # a vocab-sharded table: DTensor's embedding rule looks each
+            # token up where its row lies; the partial rows are summed at
+            # once (PyTorch 2.11 refuses a second lookup of the same
+            # table, a tied unembedding, while one is pending)
+            from torch.distributed.tensor import Replicate
+
+            y = F.embedding(tokens, w)
+            y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p
+                                               for p in y.placements])
+            return y.to(dtype)
         return w[tokens].to(dtype)
 
     @staticmethod

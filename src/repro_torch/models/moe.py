@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core.keys import KeyBuffer
-from ..parallel.sharding import batch_mean, constraint
+from ..parallel.sharding import batch_mean, constraint, is_dtensor
 from . import layers
 from .layers import MASK32, init_normal
 
@@ -139,27 +139,16 @@ def _combine(out_buf, idx, slot, gate, capacity):
     return y
 
 
-def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
-              router="learned", token_ids=None, act="swiglu",
-              dtype=torch.bfloat16):
-    """x: (B, T, D) -> (B, T, D), plus aux dict (load-balance loss)."""
-    B, T, D = x.shape
-    N = B * T
-    G = groups or 1
-    if N % G:
-        raise ValueError(f"{N} tokens do not split into {G} MoE groups")
-    n = N // G
-    capacity = capacity_of(n, k, n_experts, capacity_factor)
-    # T gathered across 'model' once (the dispatch groups are data-sharded)
-    x = constraint(x, "batch", None, None)
-    xf = x.reshape(N, D)
+def _route(params, xf, token_ids, *, n_experts, k, router, dtype):
+    """-> (idx (N, k) expert ids, gate (N, k), aux) of N tokens (N, D)."""
+    N = xf.shape[0]
     aux = {}
     if router == "hash":
         if token_ids is None:
             raise ValueError("the hash router needs token ids")
         idx = _hash_route(params, token_ids, n_experts, k)            # (N, k)
-        gate = torch.full((N, k), 1.0 / k, dtype=dtype, device=x.device)
-        aux["balance_loss"] = torch.zeros((), dtype=torch.float32, device=x.device)
+        gate = torch.full((N, k), 1.0 / k, dtype=dtype, device=xf.device)
+        aux["balance_loss"] = torch.zeros((), dtype=torch.float32, device=xf.device)
     else:
         logits = xf.float() @ params["router"]["w"]                   # (N, E) f32
         probs = torch.softmax(logits, dim=-1)
@@ -169,12 +158,11 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
         me = batch_mean(torch.nn.functional.one_hot(idx[:, 0], n_experts).float().mean(0))
         pe = batch_mean(probs.mean(0))
         aux["balance_loss"] = n_experts * (me * pe).sum()
+    return idx, gate, aux
 
-    xg = xf.reshape(G, n, D)
-    idx = idx.reshape(G, n, k)
-    gate = gate.reshape(G, n, k)
-    slot = _group_dispatch(idx, n_experts, capacity)
-    buf = _dispatch(xg, idx, slot, n_experts, capacity)               # (G, E, C, D)
+
+def _experts(params, buf, T, act, dtype):
+    """The expert FFN over the capacity buffer (G, E, C, D)."""
     # decode (T == 1): the group dim replicated, so the expert einsums stay
     # local against (E: model, F: data)-resident weights
     g_ax, f_ax = (None, "data") if T == 1 else ("data", None)
@@ -187,9 +175,144 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
     else:
         h = layers._gelu(up)
     h = constraint(h, g_ax, "model", None, f_ax)
-    out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"]["w"].to(dtype))
+    return torch.einsum("gecf,efd->gecd", h, params["w_down"]["w"].to(dtype))
+
+
+def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
+              router="learned", token_ids=None, act="swiglu",
+              dtype=torch.bfloat16):
+    """x: (B, T, D) -> (B, T, D), plus aux dict (load-balance loss).
+
+    On a DTensor `x` (sharded serving) the routing, the dispatch into the
+    capacity buffer and the combine run on each rank's own groups as plain
+    tensors (`_rank_tokens`), and the expert FFN on DTensors against the
+    experts' placements."""
+    B, T, D = x.shape
+    N = B * T
+    G = groups or 1
+    if N % G:
+        raise ValueError(f"{N} tokens do not split into {G} MoE groups")
+    n = N // G
+    capacity = capacity_of(n, k, n_experts, capacity_factor)
+    # T gathered across 'model' once (the dispatch groups are data-sharded)
+    x = constraint(x, "batch", None, None)
+    if is_dtensor(x):
+        return _moe_sharded(params, x, G, capacity, n_experts=n_experts, k=k,
+                            router=router, token_ids=token_ids, act=act, dtype=dtype)
+    xf = x.reshape(N, D)
+    idx, gate, aux = _route(params, xf, token_ids, n_experts=n_experts, k=k,
+                            router=router, dtype=dtype)
+    xg = xf.reshape(G, n, D)
+    idx = idx.reshape(G, n, k)
+    gate = gate.reshape(G, n, k)
+    slot = _group_dispatch(idx, n_experts, capacity)
+    buf = _dispatch(xg, idx, slot, n_experts, capacity)               # (G, E, C, D)
+    out_buf = _experts(params, buf, T, act, dtype)
     y = constraint(_combine(out_buf, idx, slot, gate, capacity), "data", None, None)
     y = y.reshape(B, T, D)
+    if "shared" in params:
+        y = y + layers.mlp(params["shared"], x, act=act, dtype=dtype)
+    return y, aux
+
+
+def _rank_tokens(x, G: int):
+    """The placements under which each rank holds whole MoE groups of the
+    DTensor `x` (B, ...): dim 0 over the batch axes when they split both B
+    and the G groups, else replicated (every rank routes every group)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    n_batch = math.prod(mesh.size(i) for i, a in enumerate(names) if a in ("pod", "data"))
+    split = x.shape[0] % n_batch == 0 and G % n_batch == 0
+    return [Shard(0) if split and a in ("pod", "data") else Replicate() for a in names], \
+        (n_batch if split else 1)
+
+
+def _experts_on_ranks(params, buf, places, T, act, dtype):
+    """The expert FFN of the capacity buffer `buf` (G, E, C, D; a DTensor
+    at `places`: each rank's groups, every expert) in the reference's
+    serving layout, computed by each rank on plain tensors: the experts
+    over 'model'; at prefill the rank's groups against expert weights
+    gathered over the data axes (the F dim the serving rules split), at
+    decode (T == 1) every group against the rank's F columns and rows,
+    whose partial sums an all-reduce over 'data' adds up. A redistribution
+    by hand (PyTorch 2.11's DTensor cannot run the einsums of this layout:
+    it views a non-contiguous local chunk). -> the rank's groups, every
+    expert: (G at `places`, E, C, D) local."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = buf.device_mesh
+    E = buf.shape[1]
+    F = params["w_up"]["w"].shape[-1]
+    decode = T == 1
+    on_buf, w_in, w_out, partial = [], [], [], []
+    for i, a in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if a == "model" and E % n == 0:
+            on_buf.append(Shard(1)), w_in.append(Shard(0)), w_out.append(Shard(0))
+        elif a == "data" and decode and F % n == 0:
+            on_buf.append(Replicate()), w_in.append(Shard(2)), w_out.append(Shard(1))
+            partial.append(i)
+        else:
+            on_buf.append(Replicate() if decode else places[i])
+            w_in.append(Replicate()), w_out.append(Replicate())
+
+    def local(name, places_w):
+        w = params[name]["w"]
+        return (w.redistribute(mesh, places_w).to_local() if is_dtensor(w) else w).to(dtype)
+
+    bl = buf.redistribute(mesh, on_buf).to_local()
+    up = torch.einsum("gecd,edf->gecf", bl, local("w_up", w_in))
+    if act == "swiglu":
+        h = layers._silu(torch.einsum("gecd,edf->gecf", bl, local("w_gate", w_in))) * up
+    else:
+        h = layers._gelu(up)
+    out = torch.einsum("gecf,efd->gecd", h, local("w_down", w_out))
+    for i in partial:
+        dist.all_reduce(out, group=mesh.get_group(i))
+    out = DTensor.from_local(out, mesh, on_buf, run_check=False)
+    return out.redistribute(mesh, places).to_local()
+
+
+def _moe_sharded(params, x, G, capacity, *, n_experts, k, router, token_ids, act,
+                 dtype):
+    """`moe_apply` of a DTensor `x` (B, T, D): a redistribution by hand to
+    each rank's groups (`_rank_tokens`), the routing, dispatch and combine
+    of those groups on plain local tensors (the learned router's weight is
+    replicated by the serving rules; its balance means go through
+    `batch_mean`), the expert FFN on each rank's experts
+    (`_experts_on_ranks`)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    B, T, D = x.shape
+    mesh = x.device_mesh
+    places, parts = _rank_tokens(x, G)
+    xl = x.redistribute(mesh, places).to_local()                       # (B/parts, T, D)
+    tl = None if token_ids is None else \
+        token_ids.redistribute(mesh, places).to_local() if is_dtensor(token_ids) else \
+        token_ids
+    def whole(t):  # replicated by the serving rules: no communication
+        return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local() \
+            if is_dtensor(t) else t
+
+    rp = {"router": {"w": whole(params["router"]["w"])}} if router == "learned" else \
+        {name: whole(params[name]) for name in ("const_hash_hi", "const_hash_lo")}
+    Gl = G // parts
+    nl = xl.shape[0] * T // Gl
+    xf = xl.reshape(-1, D)
+    idx, gate, aux = _route(rp, xf, tl, n_experts=n_experts, k=k, router=router,
+                            dtype=dtype)
+    idx = idx.reshape(Gl, nl, k)
+    gate = gate.reshape(Gl, nl, k)
+    slot = _group_dispatch(idx, n_experts, capacity)
+    buf = _dispatch(xf.reshape(Gl, nl, D), idx, slot, n_experts, capacity)
+    out_buf = _experts_on_ranks(params, DTensor.from_local(buf, mesh, places,
+                                                           run_check=False),
+                                places, T, act, dtype)
+    y = _combine(out_buf, idx, slot, gate, capacity).reshape(xl.shape)
+    y = DTensor.from_local(y, mesh, places, run_check=False)
     if "shared" in params:
         y = y + layers.mlp(params["shared"], x, act=act, dtype=dtype)
     return y, aux

@@ -29,7 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import constraint
+from ..parallel.sharding import constraint, is_dtensor
 from . import layers
 from .layers import init_normal
 
@@ -105,6 +105,58 @@ def _mamba_scan_chunked(dt, xc, Bs, Cs, A, h0, chunk):
     return torch.cat(ys, dim=1), h
 
 
+def _mamba_scan(dt, xc, Bs, Cs, A, ssm_state, chunk):
+    """The selective scan of (B, T, DI) dt (f32) and xc, (B, T, N) B and C,
+    A (DI, N) and the carried state (B, DI, N) -> (y (B, T, DI), state)."""
+    T = dt.shape[1]
+    if T == 1:  # decode fast path (single-step discretization)
+        dA1 = torch.exp(dt[:, 0, :, None] * A)
+        dBx1 = (dt[:, 0] * xc[:, 0].float())[..., None] * Bs[:, 0].float()[:, None, :]
+        hT = dA1 * ssm_state + dBx1
+        return torch.einsum("bdn,bn->bd", hT, Cs[:, 0].float())[:, None], hT
+    pad = (-T) % chunk
+    # dt = 0 padding -> dA = exp(0) = 1, dBx = 0: identity steps, so the
+    # carried state after the padding equals the last REAL state
+    dt_f, xc_f, Bs_f, Cs_f = (F.pad(a.float(), (0, 0, 0, pad)) for a in (dt, xc, Bs, Cs))
+    y, hT = _mamba_scan_chunked(dt_f, xc_f, Bs_f, Cs_f, A, ssm_state,
+                                min(chunk, dt_f.shape[1]))
+    return y[:, :T], hT
+
+
+def _mamba_on_ranks(dt, xc, Bs, Cs, A, ssm_state, chunk):
+    """`_mamba_scan` of DTensors, run by each rank on its own batch rows
+    and channels as plain tensors (the scan is independent across both; a
+    redistribution by hand: rows over the batch axes, channels over
+    'model' where it divides them, B and C gathered over 'model')."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = dt.device_mesh
+    B, _, DI = dt.shape
+    chan, bc, a, st, nb = [], [], [], [], 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if name in ("pod", "data") and B % (nb * n) == 0:
+            chan.append(Shard(0)), bc.append(Shard(0)), a.append(Replicate())
+            st.append(Shard(0))
+            nb *= n
+        elif name == "model" and DI % n == 0:
+            chan.append(Shard(2)), bc.append(Replicate()), a.append(Shard(0))
+            st.append(Shard(1))
+        else:
+            for p in (chan, bc, a, st):
+                p.append(Replicate())
+
+    def local(t, places):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, places).to_local()
+
+    y, hT = _mamba_scan(local(dt, chan), local(xc, chan), local(Bs, bc), local(Cs, bc),
+                        local(A, a), local(ssm_state, st), chunk)
+    return (DTensor.from_local(y, mesh, chan, run_check=False),
+            DTensor.from_local(hT, mesh, st, run_check=False))
+
+
 def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
                   ssm_state=None, dtype=torch.bfloat16, return_state=False):
     """x: (B, T, D). Optional incoming states (decode / chunked prefill):
@@ -125,7 +177,9 @@ def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
     xc = sum(xin_ext[:, i:i + T] * w[:, i] for i in range(d_conv))
     xc = layers._silu(xc)
 
-    proj = layers.linear(params["x_proj"], xc, dtype)
+    # (on a mesh the product over the split channels is a partial sum:
+    # its all-reduce, before the split into dt, B and C)
+    proj = constraint(layers.linear(params["x_proj"], xc, dtype), "batch", None, None)
     dt_rank = proj.shape[-1] - 2 * d_state
     dt, Bs, Cs = proj.split([dt_rank, d_state, d_state], dim=-1)
     dt = _softplus(layers.linear(params["dt_proj"], dt, dtype).float()
@@ -134,20 +188,8 @@ def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
 
     if ssm_state is None:
         ssm_state = torch.zeros(B, DI, d_state, dtype=torch.float32, device=x.device)
-    if T == 1:  # decode fast path (single-step discretization)
-        dA1 = torch.exp(dt[:, 0, :, None] * A)
-        dBx1 = (dt[:, 0] * xc[:, 0].float())[..., None] * Bs[:, 0].float()[:, None, :]
-        hT = dA1 * ssm_state + dBx1
-        y = torch.einsum("bdn,bn->bd", hT, Cs[:, 0].float())[:, None]
-    else:
-        pad = (-T) % chunk
-        # dt = 0 padding -> dA = exp(0) = 1, dBx = 0: identity steps, so the
-        # carried state after the padding equals the last REAL state
-        dt_f, xc_f, Bs_f, Cs_f = (F.pad(a.float(), (0, 0, 0, pad))
-                                  for a in (dt, xc, Bs, Cs))
-        y, hT = _mamba_scan_chunked(dt_f, xc_f, Bs_f, Cs_f, A, ssm_state,
-                                    min(chunk, dt_f.shape[1]))
-        y = y[:, :T]
+    scan = _mamba_on_ranks if is_dtensor(dt) else _mamba_scan
+    y, hT = scan(dt, xc, Bs, Cs, A, ssm_state, chunk)
     y = y + params["D"] * xc.float()
     y = y.to(dtype) * layers._silu(z)
     out = layers.linear(params["out_proj"], y, dtype)
@@ -232,6 +274,53 @@ def _rwkv_chunks(r, k, v, log_w, u, state, chunk):
     return (out_state + out_intra).reshape(B, Tp, H, dk), S
 
 
+def _wkv(r, k, v, log_w, u, state, chunk):
+    """The WKV recurrence of (B, T, H, dk) r, k, v, log decays, bonus u
+    (H, dk) and carried state (B, H, dk, dv) -> (y (B, T, H, dv), state)."""
+    T = r.shape[1]
+    if T == 1:  # decode fast path: out = r.(state + u k v^T); state = w*state + k v^T
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, 0].float(), v[:, 0].float())
+        out = torch.einsum("bhk,bhkv->bhv", r[:, 0].float(),
+                           state + u[None, :, :, None] * kv)
+        return out[:, None], torch.exp(log_w[:, 0])[..., None] * state + kv
+    pad = (-T) % chunk
+    r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)).float() for a in (r, k, v))
+    log_w = F.pad(log_w, (0, 0, 0, 0, 0, pad))
+    y, new_state = _rwkv_chunks(r, k, v, log_w, u, state, chunk)
+    return y[:, :T], new_state
+
+
+def _wkv_on_ranks(r, k, v, log_w, u, state, chunk):
+    """`_wkv` of DTensors, run by each rank on its own batch rows and heads
+    as plain tensors (the recurrence is independent across both; a
+    redistribution by hand to rows over the batch axes and heads over
+    'model' where they divide, the rest gathered)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = r.device_mesh
+    B, _, H, _ = r.shape
+    seq, heads, st, nb = [], [], [], 1
+    for i, a in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if a in ("pod", "data") and B % (nb * n) == 0:
+            seq.append(Shard(0)), heads.append(Replicate()), st.append(Shard(0))
+            nb *= n
+        elif a == "model" and H % n == 0:
+            seq.append(Shard(2)), heads.append(Shard(0)), st.append(Shard(1))
+        else:
+            seq.append(Replicate()), heads.append(Replicate()), st.append(Replicate())
+
+    def local(t, places):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, places).to_local()
+
+    y, new = _wkv(*(local(t, seq) for t in (r, k, v, log_w)), local(u, heads),
+                  local(state, st), chunk)
+    return (DTensor.from_local(y, mesh, seq, run_check=False),
+            DTensor.from_local(new, mesh, st, run_check=False))
+
+
 def rwkv6_time_mix(params, x, n_heads, *, chunk=16, state=None, shift_state=None,
                    dtype=torch.bfloat16, return_state=False):
     """x: (B, T, D) -> (B, T, D). state: (B, H, dk, dv) f32 carried."""
@@ -259,19 +348,9 @@ def rwkv6_time_mix(params, x, n_heads, *, chunk=16, state=None, shift_state=None
 
     if state is None:
         state = torch.zeros(B, H, dk, dk, dtype=torch.float32, device=x.device)
-
-    if T == 1:  # decode fast path: out = r.(state + u k v^T); state = w*state + k v^T
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, 0].float(), v[:, 0].float())
-        out = torch.einsum("bhk,bhkv->bhv", r[:, 0].float(),
-                           state + u[None, :, :, None] * kv)
-        new_state = torch.exp(log_w[:, 0])[..., None] * state + kv
-        y = out.reshape(B, 1, D)
-    else:
-        pad = (-T) % chunk
-        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)).float() for a in (r, k, v))
-        log_w = F.pad(log_w, (0, 0, 0, 0, 0, pad))
-        y, new_state = _rwkv_chunks(r, k, v, log_w, u, state, chunk)
-        y = y.reshape(B, -1, D)[:, :T]
+    wkv = _wkv_on_ranks if is_dtensor(r) else _wkv
+    y, new_state = wkv(r, k, v, log_w, u, state, chunk)
+    y = y.reshape(B, T, D)
 
     y = y.to(dtype) * g
     out = layers.linear(params["w_o"], y, dtype)

@@ -28,7 +28,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
-from ..parallel.sharding import constraint, seq_axis
+from ..core.pytree import map_with_paths
+from ..parallel.sharding import (NamedSharding, cache_pspec, constraint, current_mesh,
+                                 dtensor, live, seq_axis, use_mesh)
 from . import attention as attn
 from . import layers, ssm
 from . import moe as moe_mod
@@ -297,7 +299,7 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
             router=cfg.router, token_ids=token_ids, act=cfg.act, dtype=dtype)
         aux = moe_aux["balance_loss"]
         x = x + o
-    seq_sh = seq_axis(x.shape[1]) if cfg.seq_shard_activations else None
+    seq_sh = seq_axis(x.shape[1], x) if cfg.seq_shard_activations else None
     return constraint(x, "batch", seq_sh, None), aux
 
 
@@ -331,9 +333,15 @@ def init_sublayer_cache(cfg, desc: SubDesc, B, S, dtype=torch.bfloat16, device=N
 
 def init_caches(cfg, B, S, dtype=None, device=None):
     """Cache tree in the reference's layout: leaves under 'blocks' stacked
-    (n_blocks, ...), 'tail' leaves unstacked."""
+    (n_blocks, ...), 'tail' leaves unstacked. Under a mesh whose process
+    group is live, each leaf is a DTensor at its cache placement
+    (`parallel.sharding.cache_shardings`, long-context when B = 1), of
+    which each rank makes only its own chunk."""
     dtype = dtype or compute_dtype(cfg)
     device = resolve_device(device)
+    mesh = current_mesh()
+    if live(mesh):
+        return _sharded_caches(cfg, B, S, dtype, device, mesh)
     n_blocks, subs, tail = block_spec(cfg)
 
     def stacked(desc):
@@ -345,6 +353,25 @@ def init_caches(cfg, B, S, dtype=None, device=None):
         caches["tail"] = {f"s{i}": init_sublayer_cache(cfg, d, B, S, dtype, device)
                           for i, d in enumerate(tail)}
     return caches
+
+
+def _sharded_caches(cfg, B, S, dtype, device, mesh):
+    with use_mesh(None):
+        shapes = init_caches(cfg, B, S, dtype, torch.device("meta"))
+    return place_caches(shapes, device, mesh, B == 1)
+
+
+def place_caches(shapes, device, mesh, long_ctx: bool):
+    """A cache tree of meta tensors (shapes) -> DTensors at their cache
+    placements on `device`, each rank making its own chunk: zeros, and -1
+    for a ring cache's position tags."""
+    def leaf(path, t):
+        s = NamedSharding(mesh, cache_pspec(path, t.shape, long_ctx, mesh))
+        local = torch.full(s.local_shape(t.shape), -1 if path.endswith("pos") else 0,
+                           dtype=t.dtype, device=device)
+        return dtensor(local, s, t.shape)
+
+    return map_with_paths(leaf, shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +395,7 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
     if patch_embeds is not None:
         P = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(dtype), x[:, P:]], dim=1)
-    x = constraint(x, "batch", seq_axis(tokens.shape[1]) if cfg.seq_shard_activations
+    x = constraint(x, "batch", seq_axis(tokens.shape[1], x) if cfg.seq_shard_activations
                    else None, None)
     kw = dict(mode=mode, pos_offset=pos_offset, moe_groups=moe_groups, dtype=dtype,
               token_ids=tokens if cfg.moe and cfg.router == "hash" else None)

@@ -32,7 +32,7 @@ def _threaded_api():
                            "(torch.testing._internal.distributed."
                            "multi_threaded_pg); a world of ranks in one process "
                            "needs it") from exc
-    for name in ("_install_threaded_pg", "_uninstall_threaded_pg"):
+    for name in ("_install_threaded_pg", "_uninstall_threaded_pg", "ProcessLocalGroup"):
         if not hasattr(multi_threaded_pg, name):
             raise RuntimeError(f"multi_threaded_pg has no {name}")
     if not hasattr(torch._C._distributed_c10d, "_set_thread_isolation_mode"):
@@ -66,6 +66,7 @@ def run(fn, mesh: Mesh) -> list:
     results, errors = [None] * n, [None] * n
     with _LOCK:
         _isolate_threads(True)
+        mt.ProcessLocalGroup.reset()
         mt._install_threaded_pg()
         store = dist.HashStore()
 
@@ -80,6 +81,9 @@ def run(fn, mesh: Mesh) -> list:
                     results[rank] = fn(rank)
             except BaseException as exc:  # noqa: BLE001 - re-raised by the caller
                 errors[rank] = exc
+                # release the ranks waiting in a collective for this one
+                # (they stop with SystemExit) instead of hanging
+                mt.ProcessLocalGroup.exception_handle(exc)
 
         threads = [threading.Thread(target=rank_main, args=(r,), daemon=True,
                                     name=f"rank{r}") for r in range(n)]
@@ -94,7 +98,8 @@ def run(fn, mesh: Mesh) -> list:
             _isolate_threads(False)
     if hung:
         raise RuntimeError(f"ranks {hung} did not finish in {TIMEOUT_S} s")
-    for exc in errors:
-        if exc is not None:
-            raise exc
+    # the first rank's own failure, before the exits it caused
+    for exc in sorted((e for e in errors if e is not None),
+                      key=lambda e: isinstance(e, SystemExit)):
+        raise exc
     return results

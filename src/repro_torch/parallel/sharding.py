@@ -175,11 +175,14 @@ def batch_axes():
     return tuple(names) if names else None
 
 
-def seq_axis(T: int):
+def seq_axis(T: int, x=None):
     """'model' if the live mesh can evenly shard a length-T sequence dim,
-    else None (decode steps with T=1, odd tails, or no mesh)."""
+    else None (decode steps with T=1, odd tails, or no mesh). None too for
+    a DTensor activation `x`: sharded serving keeps the sequence whole
+    (PyTorch 2.11's DTensor cannot fold a sharded sequence dim into the
+    batch dim of a matrix product)."""
     m = current_mesh()
-    if m is None or "model" not in m.axis_names:
+    if m is None or "model" not in m.axis_names or is_dtensor(x):
         return None
     size = m.shape["model"]
     return "model" if T % size == 0 and T >= size else None
@@ -458,7 +461,11 @@ def batch_sharding(mesh: Mesh, ndim: int) -> NamedSharding:
 def device_mesh(mesh: Mesh):
     """The named `torch.distributed` `DeviceMesh` of `mesh`'s shape over the
     live default process group (whose world is one rank a mesh position),
-    built once a rank (a collective call: every rank makes it together)."""
+    built once a rank (a collective call: every rank makes it together).
+    The cache is keyed on the group's `id()`, which Python may reuse for a
+    later group: `parallel.fake_world` clears it (`clear_device_meshes`)
+    when a fake world ends, and a threaded rank's cache goes with its
+    thread."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -476,7 +483,14 @@ def device_mesh(mesh: Mesh):
     return cache[key]
 
 
-def _live(mesh: Mesh | None) -> bool:
+def clear_device_meshes() -> None:
+    """Forget this thread's `DeviceMesh`es (their group is gone)."""
+    _STATE.device_meshes = {}
+
+
+def live(mesh: Mesh | None) -> bool:
+    """Whether `mesh` has a live process group of its size (one rank a
+    position)."""
     import torch.distributed as dist
 
     return (mesh is not None and dist.is_available() and dist.is_initialized()
@@ -507,9 +521,10 @@ class _BatchSum(torch.autograd.Function):
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """`x` averaged over the batch ranks when a mesh is current and its
     process group is live (each rank then holds its shard of the batch, and
-    a mean over tokens must be global); `x` itself otherwise."""
+    a mean over tokens must be global); `x` itself otherwise, and for a
+    DTensor (whose own mean over the batch was already global)."""
     m = current_mesh()
-    if not _live(m):
+    if not live(m) or is_dtensor(x):
         return x
     names = [n for n in ("pod", "data") if n in m.axis_names]
     if not names:
@@ -535,11 +550,172 @@ def constraint(x, *spec):
     if not isinstance(x, DTensor):
         return x
     resolved = []
-    for s in spec:
+    for n, s in zip(x.shape, spec):
         if s == "batch":
-            resolved.append(batch_axes())
+            s = batch_axes()
         elif isinstance(s, str):
-            resolved.append(axis(s))
-        else:
-            resolved.append(s)
+            s = axis(s)
+        # an axis that does not divide the dim leaves it replicated (the
+        # rules' divisibility guard; DTensor would split it unevenly)
+        resolved.append(s if s is None or n % _axis_size(m, s) == 0 else None)
     return x.redistribute(x.device_mesh, NamedSharding(m, P(*resolved)).placements(x.ndim))
+
+
+# ---------------------------------------------------------------------------
+# DTensors: serving on a mesh (`serve.sharded`, `launch.dryrun`)
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def dtensor(local: torch.Tensor, sharding: NamedSharding, shape) -> torch.Tensor:
+    """The DTensor of global `shape` under `sharding` whose chunk on this
+    rank is `local` (the live mesh's `DeviceMesh`)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, device_mesh(sharding.mesh),
+                              sharding.placements(len(shape)), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def distribute(t: torch.Tensor, sharding: NamedSharding, rank: int) -> torch.Tensor:
+    """A whole tensor held by every rank -> the DTensor whose chunk on
+    `rank` is its slice under `sharding` (a view: no communication, no
+    copy)."""
+    return dtensor(sharding.local(t, rank), sharding, t.shape)
+
+
+def write_at(t: torch.Tensor, dim: int, start: int, value) -> None:
+    """t[..., start:start + n, ...] = value along `dim`, in place (n the
+    extent of `value` along `dim`; a number fills to the end of `dim`).
+
+    A plain `t` is written through a view. A DTensor `t` whose `dim` is
+    split over mesh axes (a cache's sequence dim) cannot be written through
+    a view: DTensor would gather the dim first and write the gathered copy.
+    So `value` is laid out as `t` with `dim` replicated (a redistribution
+    by hand: a slice of a replicated value moves no bytes) and each rank
+    copies the part of the range that falls in its own chunk of `dim`."""
+    if not is_dtensor(t):
+        if isinstance(value, (int, float)):
+            t.narrow(dim, start, t.shape[dim] - start).fill_(value)
+        else:
+            t.narrow(dim, start, value.shape[dim]).copy_(value)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, places = t.device_mesh, t.placements
+    local = t.to_local()
+    lo, hi = dim_range(t, dim)
+    if isinstance(value, (int, float)):
+        a = max(lo, start)
+        if a < hi:
+            local.narrow(dim, a - lo, hi - a).fill_(value)
+        return
+    n = value.shape[dim]
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in places]
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    v = value.redistribute(mesh, want).to_local()
+    a, b = max(lo, start), min(hi, start + n)
+    if a < b:
+        local.narrow(dim, a - lo, b - a).copy_(v.narrow(dim, a - start, b - a))
+
+
+def even_split(x, dim: int, parts: int):
+    """`x` itself, unless it is a DTensor whose `dim` is split over mesh
+    axes whose product does not divide `parts` (the units the dim is about
+    to be split into: heads): those axes then replicate the dim."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    places, n, changed = list(x.placements), 1, False
+    for i, p in enumerate(places):
+        if p.is_shard(dim % x.ndim):
+            if parts % (n * x.device_mesh.size(i)):
+                places[i], changed = Replicate(), True
+            else:
+                n *= x.device_mesh.size(i)
+    return x.redistribute(x.device_mesh, places) if changed else x
+
+
+def dim_range(t, dim: int) -> tuple:
+    """[lo, hi) of `dim` that this rank's chunk of the DTensor `t` holds:
+    split evenly over the mesh axes that shard it, in mesh order."""
+    from torch.distributed.tensor import Shard
+
+    coord = t.device_mesh.get_coordinate()
+    lo, size = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            if type(p) is not Shard:
+                raise ValueError(f"write_at: {p} on dim {dim} is not an even split")
+            n = t.device_mesh.size(i)
+            size //= n
+            lo += coord[i] * size
+    return lo, lo + size
+
+
+# ---------------------------------------------------------------------------
+# cache placements (the port of `repro.launch.dryrun.cache_pspec`)
+# ---------------------------------------------------------------------------
+
+_STACKED_CACHE = re.compile(r"(^|/)blocks(/|$)")
+
+
+def cache_pspec(path: str, leaf, long_ctx: bool, mesh: Mesh) -> P:
+    """Spec of the cache leaf at `path` (the reference's cache tree: leaves
+    under blocks/ carry a leading layer-stack dim) of `leaf`'s shape.
+    Decode shards a KV cache's S over 'model' (flash-decoding), and a
+    long-context one (B = 1) over data + model; state-space states shard
+    their channels over 'model'; a dim its axes do not divide is
+    replicated."""
+    bat = tuple(n for n in ("pod", "data") if n in mesh.axis_names)
+    full = tuple(getattr(leaf, "shape", leaf))
+    stacked = bool(_STACKED_CACHE.search(path))
+    shape = full[1:] if stacked else full
+    nd = len(shape)
+
+    def _p(*spec):
+        # a one-name tuple is that name, an empty one None (as
+        # `PartitionSpec` normalizes them)
+        spec = [s[0] if isinstance(s, tuple) and len(s) == 1 else s or None
+                for s in spec]
+        fixed = [s if s is None or shape[i] % _axis_size(mesh, s) == 0 else None
+                 for i, s in enumerate(spec)]
+        return P(*(([None] if stacked else []) + fixed))
+
+    if re.search(r"(^|/)(k|v|cross_k|cross_v)$", path) and nd == 4:
+        if long_ctx:
+            sp = ("data", "model") if "pod" not in mesh.axis_names \
+                else ("pod", "data", "model")
+            return _p(None, sp, None, None)
+        return _p(bat, "model", None, None)
+    if path.endswith("pos") and nd == 1:
+        return _p(None)
+    if path.endswith("conv") and nd == 3:
+        return _p(None if long_ctx else bat, None, "model")
+    if path.endswith("ssm") and nd == 3:
+        return _p(None if long_ctx else bat, "model", None)
+    if path.endswith("wkv") and nd == 4:
+        return _p(None if long_ctx else bat, "model", None, None)
+    if nd >= 1 and not long_ctx:
+        return _p(bat, *([None] * (nd - 1)))
+    return _p(*([None] * nd))
+
+
+def cache_shardings(caches, mesh: Mesh, long_ctx: bool):
+    """`cache_pspec` of every leaf of a cache tree, as `NamedSharding`s."""
+    from ..core.pytree import map_with_paths
+
+    return map_with_paths(
+        lambda path, leaf: NamedSharding(mesh, cache_pspec(path, leaf, long_ctx, mesh)),
+        caches)

@@ -364,6 +364,12 @@ def _token_weight(batch: dict, dm, batch_axes, n_batch, traffic, device) -> floa
     counts[idx] = local
     for a in batch_axes:
         all_reduce(counts, dm, a, traffic)
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(counts):
+        # a fake world (the dry run) holds no counts: equal counts, as
+        # a packed batch's mask of ones gives them
+        return 1.0
     if bool((counts == counts[0]).all()):
         return 1.0
     return float(local * n_batch / counts.sum().clamp_min(1))
