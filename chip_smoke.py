@@ -260,15 +260,17 @@ check exits non-zero. The last line is the JSON device record.
     a. the rules at full size: every architecture at (16, 16) and
        (2, 16, 16), training and serving, from shapes only (fake
        tensors): the leaves sharded and the bytes a rank holds;
-    b. `jit_train_step` on a world of 8 threaded ranks on the card
-       (`parallel.local_world`), shaped (pod 2, data 2, model 2):
-       `granite_moe_hash` at full width with n_layers 24 -> 2 in f32 (TF32
-       off) on 3 HashPipeline batches of 8 x 1,024 tokens, with
-       `fsdp_pods` on and off, and 1 step of `llama4_smoke` under
-       adafactor (fsdp_pods on): after every step every rank's chunks,
-       the loss and the gradient norm against the single-device step
-       (`moe_groups` 4) within 12a's bounds; ms a step of the world and the
-       bytes each collective sent;
+    b. `jit_train_step` (the partitioned program: tensor parallelism over
+       "model", one block gathered at a time) on a world of 8 threaded
+       ranks on the card (`parallel.local_world`), shaped (pod 2, data 2,
+       model 2): `granite_moe_hash` at full width with n_layers 24 -> 2 in
+       f32 (TF32 off) on 3 HashPipeline batches of 8 x 1,024 tokens, with
+       `fsdp_pods` on and off, 2 steps of it with `grad_accum` 2 (two
+       microbatches of the global batch), and 1 step of `llama4_smoke`
+       under adafactor (fsdp_pods on): after every step every rank's
+       chunks, the loss and the gradient norm against the single-device
+       step (`moe_groups` 4, the same `grad_accum`) within 12a's bounds; ms
+       a step of the world and the bytes each collective sent;
     c. `Checkpointer.restore(mesh=)` of 12c's last checkpoint onto the
        world: every rank's chunks == its slices of the single-device
        restore, kernel-1 launches == the prediction;
@@ -281,9 +283,9 @@ check exits non-zero. The last line is the JSON device record.
        then through the dry run on a fake world of one rank: dot FLOPs
        and transcendentals equal exactly, the dry run's peak within 10 %
        of the card's `max_memory_allocated` over the step;
-    b. 13b's cell on a fake (2, 2, 2) world: rank 0 sends 843,114,591
-       bytes, as 13b read, and its collectives equal the census of one
-       real step of the same cell on 8 threaded ranks on the card;
+    b. 13b's cell on a fake (2, 2, 2) world: the bytes rank 0 sends
+       (printed), and its collectives equal the census of one real step
+       of the same cell on 8 threaded ranks on the card;
     c. sharded serving (DTensors at the serving placements, caches at
        `cache_shardings`) on a threaded (data 2, model 2) world on the
        card: a 512-token prefill and 8 ticks of mistral_nemo_12b and
@@ -3181,12 +3183,13 @@ def state_errors(port: Port, got, want, cfg=None) -> dict:
 
 
 def sharded_train(port: Port, device, card: str, name: str, n_layers, n_steps: int,
-                  batches, fsdp_settings) -> dict:
+                  batches, fsdp_settings, grad_accum: int = 1) -> dict:
     """13b: `jit_train_step` on the 8-rank world against the single-device
-    step (`moe_groups` = the 4 batch ranks) from one state on the card, in
-    f32 with TF32 off: every rank's chunks, the loss and the gradient norm
-    after every step within 12a's bounds; ms a step of the world and the
-    bytes each collective moved."""
+    step (`moe_groups` = the 4 batch ranks, `grad_accum` microbatches of
+    the global batch) from one state on the card, in f32 with TF32 off:
+    every rank's chunks, the loss and the gradient norm after every step
+    within 12a's bounds; ms a step of the world and the bytes each
+    collective moved."""
     torch = port.torch
     dist = port.dist
     tstate = port.train.train_state
@@ -3197,12 +3200,14 @@ def sharded_train(port: Port, device, card: str, name: str, n_layers, n_steps: i
         full = port.get_config(name)
         cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
         tag = f"13b {name} at full width, n_layers {full.n_layers} -> {n_layers}"
+    if grad_accum > 1:
+        tag += f", grad_accum {grad_accum}"
     api = port.build_model(cfg)
     opt = port.train.make_optimizer(cfg.optimizer, port.train.Schedule(
         peak_lr=PARITY_12_LR, warmup_steps=0))
     mesh = world_mesh(port, device)
     n_batch = mesh.shape["pod"] * mesh.shape["data"]
-    step = port.train.make_train_step(api, opt, moe_groups=n_batch)
+    step = port.train.make_train_step(api, opt, moe_groups=n_batch, grad_accum=grad_accum)
     rec = {"config": tag, "optimizer": cfg.optimizer, "mesh": mesh.shape,
            "batch": list(batches[0]["tokens"].shape), "steps": n_steps, "card": card}
     with f32_products(torch):
@@ -3383,8 +3388,6 @@ def psum_on_card(port: Port, device, card: str) -> dict:
 
 # 14a: phase 12b's cell on a world of one rank
 PEAK_TOL_14 = 0.10
-# 14b: 13b's cell (2 layers, f32, fsdp_pods) and what S3/S4 read at rank 0
-TRAFFIC_13B = 843_114_591
 # 14c: sharded serving on a threaded (data 2, model 2) world on the card
 WORLD_14 = ((2, 2), ("data", "model"))
 # (arch, n_layers cut to, batch; B 1 is the long-context layout): gemma3
@@ -3471,9 +3474,9 @@ def _counts(coll: dict) -> dict:
 def census_vs_13b(port: Port, device, card: str) -> dict:
     """14b: 13b's cell -- granite_moe_hash at full width cut to 2 layers,
     f32, fsdp_pods, 8 x 1,024 tokens a step -- on a fake (2, 2, 2) world:
-    rank 0 sends TRAFFIC_13B bytes (13b's reading), and its collective
-    counts and bytes equal the census's around one real step of the same
-    cell on 8 threaded ranks on the card (the step's own `traffic` too)."""
+    the bytes rank 0 sends, and its collective counts and bytes equal the
+    census's around one real step of the same cell on 8 threaded ranks on
+    the card."""
     torch = port.torch
     cfg = dataclasses.replace(port.get_config(TRAIN_ARCH), n_layers=2, dtype="float32",
                               fsdp_pods=True)
@@ -3494,12 +3497,10 @@ def census_vs_13b(port: Port, device, card: str) -> dict:
     rec = {"dry": dc, "real_rank0": rc, "trace_s": dry["trace_s"], "card": card,
            "dry_flops": dry["cost"]["flops"], "real_flops": real[0]["cost"]["flops"]}
     print(f"14b {cfg.name} (2 layers, f32, fsdp_pods) on (2, 2, 2): the fake world's "
-          f"rank 0 sends {dc['traffic']} bytes (13b read {TRAFFIC_13B}); collectives "
+          f"rank 0 sends {dc['traffic']} bytes; collectives "
           f"{json.dumps(_counts(dc))}, result bytes {dc['total_bytes']}; the real world's "
           f"rank 0 census: {rc['traffic']} bytes sent, {json.dumps(_counts(rc))}, result "
           f"bytes {rc['total_bytes']}; trace {dry['trace_s']} s")
-    check(dc["traffic"] == TRAFFIC_13B, f"14b: rank 0 sends {dc['traffic']} bytes, "
-          f"not 13b's {TRAFFIC_13B}")
     check(_counts(dc) == _counts(rc) and dc["total_bytes"] == rc["total_bytes"]
           and dc["traffic"] == rc["traffic"],
           "14b: the fake world's collectives != the real world's census")
@@ -3870,6 +3871,9 @@ def main() -> int:
             train13 = {TRAIN_ARCH: sharded_train(
                 port, device, card, TRAIN_ARCH, 2, STEPS_13,
                 train_batches(port, device, cfg13, STEPS_13), (True, False))}
+            train13[f"{TRAIN_ARCH}_accum2"] = sharded_train(
+                port, device, card, TRAIN_ARCH, 2, 2,
+                train_batches(port, device, cfg13, 2), (True,), grad_accum=2)
             smoke = port.get_config("llama4_maverick_400b_a17b", smoke=True)
             g = np.random.default_rng(SEED + 14)
             train13["llama4_smoke"] = sharded_train(

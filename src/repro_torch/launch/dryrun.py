@@ -4,8 +4,10 @@ program of one rank over a fake world, counted by the op census.
 The port of `repro.launch.dryrun`. The reference lowers and compiles each
 cell over 512 fake host devices and reads XLA's memory and cost analyses
 and the HLO text. The port runs the cell's own sharded program -- the
-sharded train step (`train.jit_train_step`, ZeRO-3) or sharded prefill and
-decode (`serve.sharded`, DTensors at the serving placements) -- as rank 0
+sharded train step (`train.jit_train_step`: the models' training forward
+on each rank's `parallel.partition.Partition`, tensor-parallel over
+"model" with one block's weights gathered at a time) or sharded prefill and decode
+(`serve.sharded`, DTensors at the serving placements) -- as rank 0
 of a fake process group of 256 or 512 ranks (`parallel.fake_world`), on
 tensors of `FakeTensorMode` (shapes, no storage), under the census
 (`launch.op_analysis`). The numbers are the cost of that program per rank,

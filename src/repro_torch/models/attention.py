@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
+from ..parallel.partition import WHOLE
 from ..parallel.sharding import (constraint, dim_range, even_split, is_dtensor, seq_axis,
                                  write_at)
 from .layers import init_normal
@@ -83,6 +84,76 @@ def qkv_project(params, x, d_head, dtype=torch.bfloat16):
 def out_project(params, attn_out, dtype=torch.bfloat16):
     B, T = attn_out.shape[:2]
     return _proj(params["wo"], attn_out.reshape(B, T, -1), dtype)
+
+
+def attend(params, hq, hkv, *, n_heads, n_kv_heads, d_head, dtype, part=WHOLE,
+           rope=None, causal=True, window=None, chunk_q=512, chunk_k=1024, fill=None):
+    """Attention of hq's queries over hkv's keys and values (B, T, D), both
+    whole along the sequence, with the projections `params` -> (o (B, Tq,
+    ·), kind), o laid out as the rows of wo that `part.linear`'s kind says.
+    With one model rank: every head ("full"). Else the rank's heads
+    ("cols") when its query columns hold whole heads that read whole KV
+    heads (whole GQA groups, or a part of one), else the rank's share of
+    the (row, head) pairs, gathered to every head ("full"). `rope(q, k) ->
+    (q, k)` positions the heads (None: cross-attention); `fill(k, v)` takes
+    a prefill's keys and values for its cache."""
+    D, H, Hkv, dh = hq.shape[-1], n_heads, n_kv_heads, d_head
+    G = H // Hkv
+    q, qk, _ = part.linear(hq, False, params["wq"], D, H * dh, dtype)
+    k, kk, _ = part.linear(hkv, False, params["wk"], D, Hkv * dh, dtype)
+    v, vk, _ = part.linear(hkv, False, params["wv"], D, Hkv * dh, dtype)
+    B, Tq, Tk = hq.shape[0], hq.shape[1], hkv.shape[1]
+
+    def core(q, k, v):
+        if rope is not None:
+            q, k = rope(q, k)
+        if fill is not None:
+            fill(k, v)
+        return flash_attention(q, k, v, causal=causal, window=window, chunk_q=chunk_q,
+                               chunk_k=chunk_k)
+
+    if part.M == 1:
+        o = core(_heads(q, dh), _heads(k, dh), _heads(v, dh))
+        return o.reshape(B, Tq, -1), "full"
+    if qk == "cols" and q.shape[-1] % dh == 0:
+        Hl = q.shape[-1] // dh
+        h0 = part.r * Hl
+        if Hl % G == 0 or G % Hl == 0:
+            k0, k1 = h0 // G, (h0 + Hl - 1) // G + 1
+            o = core(q.reshape(B, Tq, Hl, dh), _kv_heads(part, k, kk, k0, k1, dh),
+                     _kv_heads(part, v, vk, k0, k1, dh))
+            return o.reshape(B, Tq, Hl * dh), "cols"
+    q, k, v = (part.whole(t) if kind == "cols" else t
+               for t, kind in ((q, qk), (k, kk), (v, vk)))
+    U = B * H
+    if U % part.M:
+        o = core(q.reshape(B, Tq, H, dh), k.reshape(B, Tk, Hkv, dh),
+                 v.reshape(B, Tk, Hkv, dh))
+        return o.reshape(B, Tq, H * dh), "full"
+    Ul = U // part.M
+    units = torch.arange(part.r * Ul, (part.r + 1) * Ul, device=q.device)
+    kv_of = (units // H) * Hkv + (units % H) // G
+
+    def pairs(t, T, n):  # (B, T, n*dh) -> (T, B*n, dh)
+        return t.reshape(B, T, n, dh).permute(1, 0, 2, 3).reshape(T, B * n, dh)
+
+    qu = pairs(q, Tq, H).narrow(1, part.r * Ul, Ul)
+    ku = pairs(k, Tk, Hkv).index_select(1, kv_of)
+    vu = pairs(v, Tk, Hkv).index_select(1, kv_of)
+    o = core(qu[None], ku[None], vu[None])                            # (1, Tq, Ul, dh)
+    o = part.whole(o, 2)[0]                                           # (Tq, U, dh)
+    return o.reshape(Tq, B, H, dh).permute(1, 0, 2, 3).reshape(B, Tq, H * dh), "full"
+
+
+def _kv_heads(part, t, kind, k0: int, k1: int, dh: int):
+    """KV heads [k0, k1) of a key or value projection of the kind
+    `part.linear` gave it."""
+    B, T, n = t.shape
+    if kind == "cols" and n == (k1 - k0) * dh and part.r * (k1 - k0) == k0:
+        return t.reshape(B, T, k1 - k0, dh)
+    if kind == "cols":
+        t = part.whole(t)
+    return t[..., k0 * dh:k1 * dh].reshape(B, T, k1 - k0, dh)
 
 
 def _chunk_scores_mask(q_pos, k_pos, causal, window, kv_len=None):

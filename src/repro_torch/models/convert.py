@@ -48,6 +48,14 @@ _F32_PATHS = (("router", "w"),)
 _KEY_PLANES = ("const_key", "const_hash")
 
 
+def held_dtype(path: tuple, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a serving tree holds the float leaf at `path` (the
+    reference's keys) in, and the models read it in: f32 for the leaves the
+    reference uses uncast, else the compute dtype `dtype` (cast at use)."""
+    return (torch.float32 if path[-1] in _F32_LEAVES or tuple(path[-2:]) in _F32_PATHS
+            else dtype)
+
+
 def params_from_jax(cfg, tree: dict, device=None, train: bool = False) -> ParamTree:
     """The reference's parameter pytree (numpy or tensor leaves) as the
     port's parameters on `device` (default: the card); with `train`, f32
@@ -59,8 +67,7 @@ def params_from_jax(cfg, tree: dict, device=None, train: bool = False) -> ParamT
     def leaf(path, a):
         if path[-1].startswith(_KEY_PLANES):
             return as_u32_values(a, device)
-        held = (torch.float32 if path[-1] in _F32_LEAVES or path[-2:] in _F32_PATHS
-                else dtype)
+        held = held_dtype(path, dtype)
         t = a.detach() if isinstance(a, torch.Tensor) else torch.from_numpy(
             np.array(a, np.float32))
         return t.to(device=device, dtype=held, copy=True)

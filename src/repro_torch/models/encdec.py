@@ -16,18 +16,20 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.partition import WHOLE
 from ..parallel.sharding import (NamedSharding, cache_pspec, constraint, current_mesh,
                                  live, use_mesh)
 from . import attention as attn
 from . import layers
 from .layers import ParamTree, init_normal
 from .transformer import (SubDesc, _norm_apply, _norm_init, apply_sublayer,
-                          chunked_ce_loss, compute_dtype, init_sublayer,
+                          chunked_ce_loss, compute_dtype, embed_tokens, init_sublayer,
                           init_sublayer_cache, place_caches, unembed_matrix)
 
 ENC_DESC = SubDesc(kind="attn", causal=False, ffn="dense")
 DEC_DESC = SubDesc(kind="attn", causal=True, ffn="dense", cross=True)
 DEC_POSITIONS = 8192
+TOP = ("embed", "pos_dec", "enc_norm", "final_norm")
 
 
 def init_encdec(gen: torch.Generator, cfg, train: bool = False) -> ParamTree:
@@ -47,21 +49,25 @@ def init_encdec(gen: torch.Generator, cfg, train: bool = False) -> ParamTree:
     }, trainable=train)
 
 
-def encode(params, cfg, frames, moe_groups=1):
-    """frames: (B, S_enc, D) precomputed conv-frontend output (stub)."""
+def encode(params, cfg, frames, moe_groups=1, *, part=WHOLE, top=None):
+    """frames: (B, S_enc, D) precomputed conv-frontend output (stub). With
+    a `parallel.partition.Partition`: the rank's share of each layer, the
+    output whole on every model rank."""
     dtype = compute_dtype(cfg)
     B, S, D = frames.shape
+    top = top if top is not None else part.tops(params, TOP)
+    sp = part.seq(cfg, S)
     x = frames.to(dtype) + layers.sinusoidal_positions(S, D, frames.device).to(dtype)[None]
-    x = constraint(x, "batch", None, None)
+    x = part.own(constraint(x, "batch", None, None), sp)
 
     def layer(p, x):
-        return apply_sublayer(p, x, ENC_DESC, cfg, mode="train",
-                              moe_groups=moe_groups, dtype=dtype)[0]
+        return apply_sublayer(part.gather(p), x, ENC_DESC, cfg, mode="train",
+                              moe_groups=moe_groups, dtype=dtype, part=part, sp=sp)[0]
 
     remat = cfg.remat and torch.is_grad_enabled()
     for p in params["enc_layers"]:
         x = checkpoint(layer, p, x, use_reentrant=False) if remat else layer(p, x)
-    return _norm_apply(cfg, params["enc_norm"], x)
+    return part.enter(_norm_apply(cfg, top["enc_norm"], x), sp)
 
 
 def _cross_kv(p_layer, cfg, enc_out):
@@ -108,38 +114,45 @@ def init_decoder_caches(params, cfg, enc_out, B, S):
 
 
 def decoder_forward(params, cfg, tokens, *, mode, caches=None, enc_out=None,
-                    pos_offset=0, moe_groups=1):
+                    pos_offset=0, moe_groups=1, part=WHOLE, top=None):
     """Returns (hidden (B, T, D), caches): the caches given, written in
-    place. Without caches ('train') the cross K/V come from `enc_out`."""
+    place. Without caches ('train') the cross K/V come from `enc_out`.
+    With a `parallel.partition.Partition`: the rank's share, hidden in the
+    stream's layout."""
     dtype = compute_dtype(cfg)
     T = tokens.shape[1]
-    x = layers.embed(params["embed"], tokens, dtype)
-    pos = pos_offset + torch.arange(T, device=x.device)
-    x = x + params["pos_dec"]["w"].to(dtype)[pos][None]
+    top = top if top is not None else part.tops(params, TOP)
+    sp = part.seq(cfg, T)
+    x = embed_tokens(top, cfg, tokens, dtype, part=part, sp=sp)
+    pos = part.own((pos_offset + torch.arange(T, device=x.device))[None], sp)[0]
+    x = x + top["pos_dec"]["w"].to(dtype)[pos][None]
     x = constraint(x, "batch", None, None)
+    enc = None if caches is not None else enc_out.to(dtype)
+
     def layer(b, p_layer, x):
-        if caches is not None:
-            c = {k: t[b] for k, t in caches["blocks"]["s0"].items()}  # views
-        else:
-            ck, cv = _cross_kv(p_layer, cfg, enc_out.to(dtype))
-            c = {"cross_k": ck, "cross_v": cv}
-        return apply_sublayer(p_layer["s0"], x, DEC_DESC, cfg, mode=mode,
-                              pos_offset=pos_offset, cache=c,
-                              moe_groups=moe_groups, dtype=dtype)[0]
+        c = None if caches is None else {k: t[b] for k, t in caches["blocks"]["s0"].items()}
+        return apply_sublayer(part.gather(p_layer)["s0"], x, DEC_DESC, cfg, mode=mode,
+                              pos_offset=pos_offset, cache=c, moe_groups=moe_groups,
+                              dtype=dtype, part=part, sp=sp, enc=enc)[0]
 
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for b, p_layer in enumerate(params["blocks"]):
         x = (checkpoint(layer, b, p_layer, x, use_reentrant=False) if remat
              else layer(b, p_layer, x))
-    return _norm_apply(cfg, params["final_norm"], x), caches
+    return _norm_apply(cfg, top["final_norm"], x), caches
 
 
-def encdec_loss(params, cfg, batch, moe_groups=1):
-    """batch: frames (B, S_enc, D), tokens (B, T), labels (B, T)."""
-    enc_out = encode(params, cfg, batch["frames"], moe_groups)
-    hidden, _ = decoder_forward(params, cfg, batch["tokens"], mode="train",
-                                enc_out=enc_out, moe_groups=moe_groups)
-    ce = chunked_ce_loss(params, cfg, hidden, batch["labels"], batch.get("mask"))
+def encdec_loss(params, cfg, batch, moe_groups=1, *, part=WHOLE):
+    """batch: frames (B, S_enc, D), tokens (B, T), labels (B, T). With a
+    `parallel.partition.Partition`: the rank's share of the CE
+    (`transformer.lm_loss`)."""
+    top = part.tops(params, TOP)
+    enc_out = encode(params, cfg, batch["frames"], moe_groups, part=part, top=top)
+    tokens = batch["tokens"]
+    hidden, _ = decoder_forward(params, cfg, tokens, mode="train", enc_out=enc_out,
+                                moe_groups=moe_groups, part=part, top=top)
+    ce = chunked_ce_loss(top, cfg, hidden, batch["labels"], batch.get("mask"), part=part,
+                         sp=part.seq(cfg, tokens.shape[1]))
     return ce, {"ce": ce, "balance": torch.zeros((), dtype=torch.float32,
                                                  device=ce.device)}
 

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.keys import KeyBuffer
+from ..parallel.partition import WHOLE
 from ..parallel.sharding import constraint, is_dtensor, seq_axis
 
 MASK32 = 0xFFFFFFFF
@@ -141,15 +142,22 @@ def mlp_init(gen, d_model, d_ff, act="swiglu", bias=False, dtype=torch.float32):
     return p
 
 
-def mlp(params, x, act="swiglu", dtype=torch.bfloat16):
-    up = linear(params["w_up"], x, dtype)
+def mlp(params, x, act="swiglu", dtype=torch.bfloat16, *, part=WHOLE, d_ff=None,
+        sp=False):
+    """The FFN of x (B, T, D). With a `parallel.partition.Partition` of
+    several model ranks, x is the sublayer's whole sequence, the weights
+    the rank's (`d_ff` the whole width): its columns of w_gate and w_up,
+    its rows of w_down; the result in the stream's layout (`sp`)."""
+    D = x.shape[-1]
+    Fd = d_ff or params["w_up"]["w"].shape[1]
+    up, kind, _ = part.linear(x, False, params["w_up"], D, Fd, dtype)
     if act == "swiglu":
-        h = _silu(linear(params["w_gate"], x, dtype)) * up
+        h = _silu(part.linear(x, False, params["w_gate"], D, Fd, dtype)[0]) * up
     else:
         h = act_fn(act)(up)
     # context-parallel: hidden stays T-sharded over 'model'
     h = constraint(h, "batch", seq_axis(h.shape[1], h), None)
-    return linear(params["w_down"], h, dtype)
+    return part.exit(*part.linear(h, kind == "cols", params["w_down"], Fd, D, dtype), sp=sp)
 
 
 # ---------------------------------------------------------------------------

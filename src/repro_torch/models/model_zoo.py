@@ -6,10 +6,12 @@ The port of `repro.models.model_zoo`, for all 10 architectures and their
 variants. Batches may hold numpy arrays or tensors; they are moved to the
 parameters' device. `loss` returns a loss that carries its gradient to
 the parameters of a tree built with `init(gen, train=True)` (f32 masters;
-`train.make_train_step` differentiates it). `moe_groups` is the number of
-MoE dispatch groups (capacity is per group, so it decides which tokens
-drop). `prefill` and `decode_step` record no gradient, so a trained
-tree serves as it is.
+`train.make_train_step` differentiates it); with a
+`parallel.partition.Partition` as `part`, it is one rank's share of the
+sharded train step's loss. `moe_groups` is the number of MoE dispatch
+groups (capacity is per group, so it decides which tokens drop).
+`prefill` and `decode_step` record no gradient, so a trained tree serves
+as it is.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Callable
 import torch
 
 from ..configs import ArchConfig, ShapeSpec
+from ..parallel.partition import WHOLE
 from . import encdec, transformer
 
 
@@ -26,7 +29,7 @@ from . import encdec, transformer
 class ModelAPI:
     cfg: ArchConfig
     init: Callable                  # (torch.Generator, train=False) -> params
-    loss: Callable                  # (params, batch, moe_groups) -> (loss, metrics)
+    loss: Callable                  # (params, batch, moe_groups, part) -> (loss, metrics)
     prefill: Callable               # (params, batch, cache_len, moe_groups) -> (logits, caches)
     decode_step: Callable           # (params, caches, token, pos, moe_groups) -> (logits, caches)
     init_caches: Callable           # (B, S, device=None) -> caches
@@ -68,9 +71,9 @@ def _build_lm(cfg: ArchConfig) -> ModelAPI:
         """Weights drawn from `gen` on its device (f32 masters with `train`)."""
         return transformer.init_lm(gen, cfg, train)
 
-    def loss(params, batch, moe_groups=1):
+    def loss(params, batch, moe_groups=1, part=WHOLE):
         return transformer.lm_loss(params, cfg, _on(params, batch),
-                                   moe_groups=moe_groups)
+                                   moe_groups=moe_groups, part=part)
 
     @torch.no_grad()
     def prefill(params, batch, cache_len=None, moe_groups=1):
@@ -99,9 +102,9 @@ def _build_encdec(cfg: ArchConfig) -> ModelAPI:
         """Weights drawn from `gen` on its device (f32 masters with `train`)."""
         return encdec.init_encdec(gen, cfg, train)
 
-    def loss(params, batch, moe_groups=1):
+    def loss(params, batch, moe_groups=1, part=WHOLE):
         return encdec.encdec_loss(params, cfg, _on(params, batch),
-                                  moe_groups=moe_groups)
+                                  moe_groups=moe_groups, part=part)
 
     @torch.no_grad()
     def prefill(params, batch, cache_len=None, moe_groups=1):

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.keys import KeyBuffer
+from ..parallel.partition import WHOLE
 from ..parallel.sharding import batch_mean, constraint, is_dtensor
 from . import layers
 from .layers import MASK32, init_normal
@@ -180,13 +181,17 @@ def _experts(params, buf, T, act, dtype):
 
 def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
               router="learned", token_ids=None, act="swiglu",
-              dtype=torch.bfloat16):
+              dtype=torch.bfloat16, part=WHOLE, d_ff=None, sp=False):
     """x: (B, T, D) -> (B, T, D), plus aux dict (load-balance loss).
 
     On a DTensor `x` (sharded serving) the routing, the dispatch into the
     capacity buffer and the combine run on each rank's own groups as plain
     tensors (`_rank_tokens`), and the expert FFN on DTensors against the
-    experts' placements."""
+    experts' placements. With a `parallel.partition.Partition` of several
+    model ranks (x the whole sequence, `d_ff` the whole width): every rank
+    routes every token of its rows and runs its own experts (the pairs of
+    the others' drop here); their partial sums and the shared expert's
+    share in the stream's layout (`sp`)."""
     B, T, D = x.shape
     N = B * T
     G = groups or 1
@@ -206,13 +211,22 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
     idx = idx.reshape(G, n, k)
     gate = gate.reshape(G, n, k)
     slot = _group_dispatch(idx, n_experts, capacity)
-    buf = _dispatch(xg, idx, slot, n_experts, capacity)               # (G, E, C, D)
+    El = params["w_up"]["w"].shape[0]
+    if El != n_experts:  # the rank's experts
+        local = idx - part.r * El
+        mine = (local >= 0) & (local < El)
+        idx, slot = torch.where(mine, local, 0), torch.where(mine, slot, capacity)
+    buf = _dispatch(xg, idx, slot, El, capacity)                      # (G, E, C, D)
     out_buf = _experts(params, buf, T, act, dtype)
     y = constraint(_combine(out_buf, idx, slot, gate, capacity), "data", None, None)
-    y = y.reshape(B, T, D)
-    if "shared" in params:
-        y = y + layers.mlp(params["shared"], x, act=act, dtype=dtype)
-    return y, aux
+    kind = "partial" if El != n_experts else "full"
+    if "shared" not in params:
+        return part.exit(y.reshape(B, T, D), kind, sp=sp), aux
+    # the shared expert before the experts' exit, so that a block's
+    # recompute, which stops at its last saved tensor, runs neither sum
+    shared = layers.mlp(params["shared"], x, act=act, dtype=dtype, part=part, d_ff=d_ff,
+                        sp=sp)
+    return part.exit(y.reshape(B, T, D), kind, sp=sp) + shared, aux
 
 
 def _rank_tokens(x, G: int):

@@ -28,7 +28,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..parallel.partition import WHOLE
 from ..parallel.sharding import constraint, is_dtensor
 from . import layers
 from .layers import init_normal
@@ -118,9 +120,20 @@ def _mamba_scan(dt, xc, Bs, Cs, A, ssm_state, chunk):
     # dt = 0 padding -> dA = exp(0) = 1, dBx = 0: identity steps, so the
     # carried state after the padding equals the last REAL state
     dt_f, xc_f, Bs_f, Cs_f = (F.pad(a.float(), (0, 0, 0, pad)) for a in (dt, xc, Bs, Cs))
-    y, hT = _mamba_scan_chunked(dt_f, xc_f, Bs_f, Cs_f, A, ssm_state,
-                                min(chunk, dt_f.shape[1]))
-    return y[:, :T], hT
+    c = min(chunk, dt_f.shape[1])
+    if not (torch.is_grad_enabled() and dt_f.requires_grad):
+        y, hT = _mamba_scan_chunked(dt_f, xc_f, Bs_f, Cs_f, A, ssm_state, c)
+        return y[:, :T], hT
+    # with gradients, each chunk is recomputed in the backward: only the
+    # state between chunks is saved, not a chunk's (chunk, B, DI, N) tiles
+    # and their log-step scan
+    h, ys = ssm_state, []
+    for t0 in range(0, dt_f.shape[1], c):
+        y, h = checkpoint(_mamba_scan_chunked, dt_f[:, t0:t0 + c], xc_f[:, t0:t0 + c],
+                          Bs_f[:, t0:t0 + c], Cs_f[:, t0:t0 + c], A, h, c,
+                          use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :T], h
 
 
 def _mamba_on_ranks(dt, xc, Bs, Cs, A, ssm_state, chunk):
@@ -158,41 +171,56 @@ def _mamba_on_ranks(dt, xc, Bs, Cs, A, ssm_state, chunk):
 
 
 def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
-                  ssm_state=None, dtype=torch.bfloat16, return_state=False):
+                  ssm_state=None, dtype=torch.bfloat16, return_state=False, part=WHOLE,
+                  d_inner=None, sp=False):
     """x: (B, T, D). Optional incoming states (decode / chunked prefill):
-    conv_state (B, d_conv-1, DI), ssm_state (B, DI, N) f32."""
+    conv_state (B, d_conv-1, DI), ssm_state (B, DI, N) f32. With a
+    `parallel.partition.Partition` of several model ranks (x the whole
+    sequence, `d_inner` the whole DI): the rank's channels -- in_proj
+    regathered into its columns of x and of z, the x_proj product summed
+    over the ranks -- and the result in the stream's layout (`sp`)."""
     B, T, D = x.shape
-    d_conv = params["conv"]["w"].shape[1]
-    xz = layers.linear(params["in_proj"], x, dtype)
+    conv = params["conv"]["w"]
+    DIl, d_conv = conv.shape
+    DI = d_inner or DIl
+    w = part.fit(params["in_proj"]["w"], 1, 2 * DI)
+    if DIl != DI:  # the rank's columns of x and of z
+        c0 = part.r * DIl
+        w = torch.cat([w[:, c0:c0 + DIl], w[:, DI + c0:DI + c0 + DIl]], dim=1)
+    xz = layers.linear({"w": w}, x, dtype)
     xin, z = xz.chunk(2, dim=-1)
-    DI = xin.shape[-1]
     xin = constraint(xin, "batch", None, "model")
 
     # causal depthwise conv over T with carried tail
     if conv_state is None:
-        conv_state = torch.zeros(B, d_conv - 1, DI, dtype=dtype, device=x.device)
+        conv_state = torch.zeros(B, d_conv - 1, DIl, dtype=dtype, device=x.device)
     xin_ext = torch.cat([conv_state, xin], dim=1)
     new_conv_state = xin_ext[:, -(d_conv - 1):] if d_conv > 1 else conv_state
-    w = params["conv"]["w"].to(dtype)  # (DI, k)
+    w = conv.to(dtype)  # (DI, k)
     xc = sum(xin_ext[:, i:i + T] * w[:, i] for i in range(d_conv))
     xc = layers._silu(xc)
 
     # (on a mesh the product over the split channels is a partial sum:
     # its all-reduce, before the split into dt, B and C)
-    proj = constraint(layers.linear(params["x_proj"], xc, dtype), "batch", None, None)
+    xp = params["x_proj"]
+    proj, kind, _ = part.linear(xc, DIl != DI, xp, DI, xp["w"].shape[1], dtype)
+    if kind == "partial":
+        proj = part.sum(proj)
+    proj = constraint(proj, "batch", None, None)
     dt_rank = proj.shape[-1] - 2 * d_state
     dt, Bs, Cs = proj.split([dt_rank, d_state, d_state], dim=-1)
-    dt = _softplus(layers.linear(params["dt_proj"], dt, dtype).float()
-                   + params["dt_bias"])  # (B, T, DI) f32
-    A = -torch.exp(params["A_log"])  # (DI, N)
+    dt = _softplus(layers.linear({"w": part.fit(params["dt_proj"]["w"], 1, DIl)}, dt,
+                                 dtype).float()
+                   + part.fit(params["dt_bias"], 0, DIl))  # (B, T, DI) f32
+    A = -torch.exp(part.fit(params["A_log"], 0, DIl))  # (DI, N)
 
     if ssm_state is None:
-        ssm_state = torch.zeros(B, DI, d_state, dtype=torch.float32, device=x.device)
+        ssm_state = torch.zeros(B, DIl, d_state, dtype=torch.float32, device=x.device)
     scan = _mamba_on_ranks if is_dtensor(dt) else _mamba_scan
     y, hT = scan(dt, xc, Bs, Cs, A, ssm_state, chunk)
-    y = y + params["D"] * xc.float()
+    y = y + part.fit(params["D"], 0, DIl) * xc.float()
     y = y.to(dtype) * layers._silu(z)
-    out = layers.linear(params["out_proj"], y, dtype)
+    out = part.exit(*part.linear(y, DIl != DI, params["out_proj"], DI, D, dtype), sp=sp)
     if return_state:
         return out, (new_conv_state, hT)
     return out
@@ -322,11 +350,13 @@ def _wkv_on_ranks(r, k, v, log_w, u, state, chunk):
 
 
 def rwkv6_time_mix(params, x, n_heads, *, chunk=16, state=None, shift_state=None,
-                   dtype=torch.bfloat16, return_state=False):
-    """x: (B, T, D) -> (B, T, D). state: (B, H, dk, dv) f32 carried."""
+                   dtype=torch.bfloat16, return_state=False, part=WHOLE, sp=False):
+    """x: (B, T, D) -> (B, T, D). state: (B, H, dk, dv) f32 carried. With a
+    `parallel.partition.Partition` of several model ranks (x the whole
+    sequence): the rank's heads, or every head where its columns hold no
+    whole ones; the result in the stream's layout (`sp`)."""
     B, T, D = x.shape
-    H = n_heads
-    dk = D // H
+    dk = D // n_heads
     mix = params["mix"]
     xr, last = _token_shift(x, mix[0].to(dtype), shift_state)
     xk, _ = _token_shift(x, mix[1].to(dtype), shift_state)
@@ -334,26 +364,33 @@ def rwkv6_time_mix(params, x, n_heads, *, chunk=16, state=None, shift_state=None
     xg, _ = _token_shift(x, mix[3].to(dtype), shift_state)
     xw, _ = _token_shift(x, mix[4].to(dtype), shift_state)
 
-    r = layers.linear(params["w_r"], xr, dtype).reshape(B, T, H, dk)
-    k = layers.linear(params["w_k"], xk, dtype).reshape(B, T, H, dk)
-    v = layers.linear(params["w_v"], xv, dtype).reshape(B, T, H, dk)
-    g = layers._silu(layers.linear(params["w_g"], xg, dtype))
+    rkv = [part.linear(t, False, params[n], D, D, dtype)
+           for t, n in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v"))]
+    if any(kind == "cols" for _, kind, _ in rkv) and rkv[0][0].shape[-1] % dk:
+        rkv = [(part.whole(y) if kind == "cols" else y, "full", None)
+               for y, kind, _ in rkv]  # the heads do not split: all of them
+    (r, _, _), (k, _, _), (v, _, _) = rkv
+    Dl = r.shape[-1]
+    H = Dl // dk
+    r, k, v = (t.reshape(B, T, H, dk) for t in (r, k, v))
+    g = layers._silu(part.fit(part.linear(xg, False, params["w_g"], D, D, dtype)[0], -1, Dl))
     # data-dependent log decay (clamped for fp32 chunk math)
-    ww = params["decay"] + layers.linear(
-        params["w_decay_b"],
-        torch.tanh(layers.linear(params["w_decay_a"], xw, dtype)), dtype).float()
+    lora = params["w_decay_a"]["w"].shape[1]
+    a = torch.tanh(part.linear(xw, False, params["w_decay_a"], D, lora, dtype)[0])
+    ww = part.fit(params["decay"], 0, Dl) + layers.linear(
+        {"w": part.fit(params["w_decay_b"]["w"], 1, Dl)}, a, dtype).float()
     log_w = -torch.exp(ww.clamp(-8.0, 1.0))            # (B,T,D) in [-e, -3e-4]
     log_w = log_w.clamp(-10.0, -1e-4).reshape(B, T, H, dk)
-    u = params["bonus"]  # (H, dk)
+    u = part.fit(params["bonus"], 0, H)  # (H, dk)
 
     if state is None:
         state = torch.zeros(B, H, dk, dk, dtype=torch.float32, device=x.device)
     wkv = _wkv_on_ranks if is_dtensor(r) else _wkv
     y, new_state = wkv(r, k, v, log_w, u, state, chunk)
-    y = y.reshape(B, T, D)
+    y = y.reshape(B, T, Dl)
 
     y = y.to(dtype) * g
-    out = layers.linear(params["w_o"], y, dtype)
+    out = part.exit(*part.linear(y, Dl != D, params["w_o"], D, D, dtype), sp=sp)
     if return_state:
         return out, (new_state, last)
     return out
@@ -370,13 +407,28 @@ def rwkv6_channel_mix_init(gen, d_model, d_ff, dtype=torch.float32):
 
 
 def rwkv6_channel_mix(params, x, *, shift_state=None, dtype=torch.bfloat16,
-                      return_state=False):
+                      return_state=False, part=WHOLE, d_ff=None, sp=False):
+    """With a `parallel.partition.Partition` of several model ranks (x the
+    whole sequence, `d_ff` the whole width): the rank's FFN columns or, with
+    every weight whole (the rules split none of them), every column on the
+    rank's own positions; the result in the stream's layout (`sp`)."""
+    D = x.shape[-1]
+    Fd = d_ff or params["ffn_k"]["w"].shape[1]
     xk, last = _token_shift(x, params["mix"][0].to(dtype), shift_state)
     xr, _ = _token_shift(x, params["mix"][1].to(dtype), shift_state)
-    k = torch.relu(layers.linear(params["ffn_k"], xk, dtype)).square()
-    k = constraint(k, "batch", None, "model")
-    kv = layers.linear(params["ffn_v"], k, dtype)
-    out = torch.sigmoid(layers.linear(params["ffn_r"], xr, dtype)) * kv
+    whole = (params["ffn_k"]["w"].shape == (D, Fd) and params["ffn_v"]["w"].shape == (Fd, D)
+             and params["ffn_r"]["w"].shape == (D, D))
+    if whole:
+        xk, xr = part.own(xk, sp), part.own(xr, sp)
+    k, kk, _ = part.linear(xk, False, params["ffn_k"], D, Fd, dtype)
+    k = constraint(torch.relu(k).square(), "batch", None, "model")
+    kv, kind, _ = part.linear(k, kk == "cols", params["ffn_v"], Fd, D, dtype)
+    r, rk, _ = part.linear(xr, False, params["ffn_r"], D, D, dtype)
+    if rk == "partial":
+        r = part.sum(r)
+    out = torch.sigmoid(part.fit(r, -1, kv.shape[-1])) * kv
+    if not whole:
+        out = part.exit(out, kind, sp=sp)
     if return_state:
         return out, last
     return out

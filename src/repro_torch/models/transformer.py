@@ -21,6 +21,7 @@ reads and writes a view of its row, in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..core.pytree import map_with_paths
+from ..parallel.partition import WHOLE
 from ..parallel.sharding import (NamedSharding, cache_pspec, constraint, current_mesh,
                                  dtensor, live, seq_axis, use_mesh)
 from . import attention as attn
@@ -174,16 +176,34 @@ def init_lm(gen: torch.Generator, cfg, train: bool = False) -> ParamTree:
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg, tokens, dtype):
+def embed_tokens(params, cfg, tokens, dtype, *, part=WHOLE, sp=False, patch=None):
+    """The token embedding (the `patch` embeddings in place of the first
+    positions) in the stream's layout (`sp`). With a
+    `parallel.partition.Partition` of several model ranks whose table is
+    split over them: each rank looks up the tokens of its rows of the
+    vocabulary, the rows summed over the ranks."""
     if cfg.hashed_embedding:
-        x = layers.hashed_embed(params["embed"], tokens,
-                                cfg.vocab_size // cfg.hashed_vocab_factor,
-                                cfg.hashed_n_hashes, dtype)
+        e = params["embed"]
+        nb = cfg.vocab_size // cfg.hashed_vocab_factor
+        table = {**e, "hashed": {"w": part.fit(e["hashed"]["w"], 0, nb)}} \
+            if part.M > 1 else e
+        x, kind = layers.hashed_embed(table, tokens, nb, cfg.hashed_n_hashes, dtype), "full"
     else:
-        x = layers.embed(params["embed"], tokens, dtype)
+        w = params["embed"]["tok"]["w"]
+        if w.shape[0] == cfg.vocab_size:
+            x, kind = layers.embed(params["embed"], tokens, dtype), "full"
+        else:  # the rank's rows of the vocabulary
+            local = tokens.long() - part.r * w.shape[0]
+            mine = (local >= 0) & (local < w.shape[0])
+            x = layers.embed({"tok": {"w": w}}, torch.where(mine, local, 0), dtype)
+            x, kind = x * mine[..., None].to(dtype), "partial"
+    x = part.exit(x, kind, sp=sp and patch is None)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
-    return x
+    if patch is None:
+        return x
+    P = patch.shape[1]
+    return part.own(torch.cat([patch.to(dtype), x[:, P:]], dim=1), sp)
 
 
 def unembed_matrix(params, cfg, dtype):
@@ -235,43 +255,71 @@ def _write(cache, **new):
 
 
 def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
-                   token_ids=None, moe_groups=1, dtype=torch.bfloat16):
+                   token_ids=None, moe_groups=1, dtype=torch.bfloat16, part=WHOLE,
+                   sp=False, enc=None):
     """x: (B, T, D). mode: 'train' | 'prefill' | 'decode'. `cache` (this
-    sublayer's, a view) is written in place. Returns (x, aux): aux is the
-    MoE balance loss of an MoE FFN, else None."""
-    T = x.shape[1]
+    sublayer's, a view) is written in place; `enc` is the encoder output a
+    'train' pass of whisper's decoder cross-attends to (serving reads its
+    K/V from the cache). Returns (x, aux): aux is the MoE balance loss of
+    an MoE FFN, else None. With a `parallel.partition.Partition` (the
+    sharded train step's), x is the rank's part of the stream (`sp`: its
+    share of the sequence), `p` its gathered weights, and each sublayer
+    computes the rank's share (`parallel.partition`)."""
+    D, H, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     aux = None
-    h = _norm_apply(cfg, p["ln1"], x)
+
+    def out(o, kind, w):  # the output projection, in the stream's layout
+        return part.exit(*part.linear(o, kind == "cols", w, H * dh, D, dtype), sp=sp)
+
+    h = part.enter(_norm_apply(cfg, p["ln1"], x), sp)
+    T = h.shape[1]
     if desc.kind == "attn":
-        q, k, v = attn.qkv_project(p["attn"], h, cfg.head_dim, dtype)
         positions = _positions_for(cfg, T, pos_offset,
                                    cfg.vision_prefix if mode != "decode" else 0, x.device)
-        q = _apply_rope_q_or_k(cfg, q, positions, desc.theta)
-        k = _apply_rope_q_or_k(cfg, k, positions, desc.theta)
-        q, k = _qk_norm(cfg, q, k)
+
+        def rope(q, k):
+            q = _apply_rope_q_or_k(cfg, q, positions, desc.theta)
+            k = _apply_rope_q_or_k(cfg, k, positions, desc.theta)
+            return _qk_norm(cfg, q, k)
+
         if mode == "decode":
+            q, k, v = attn.qkv_project(p["attn"], h, dh, dtype)
+            q, k = rope(q, k)
             attn.cache_insert(cache, k, v, pos_offset)
             o = attn.decode_attend(cache, q, pos_offset, window=desc.window)
+            o, kind = o.reshape(*o.shape[:2], -1), "full"
         else:
-            o = attn.flash_attention(q, k, v, causal=desc.causal, window=desc.window,
-                                     chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+            fill = None
             if mode == "prefill" and cache is not None:
-                fill = attn.ring_prefill if attn.is_ring(cache) else attn.linear_prefill
-                fill(cache, k, v, T)
-        x = x + constraint(attn.out_project(p["attn"], o, dtype), "batch", None, None)
-        if desc.cross:  # whisper's decoder: K/V of the encoder output, cached
-            hc = _norm_apply(cfg, p["cross_ln"], x)
-            qc = attn.q_project(p["cross"], hc, cfg.head_dim, dtype)
-            oc = attn.flash_attention(qc, cache["cross_k"], cache["cross_v"],
-                                      causal=False, chunk_q=cfg.attn_chunk_q,
-                                      chunk_k=cfg.attn_chunk_k)
-            x = x + attn.out_project(p["cross"], oc, dtype)
+                def fill(k, v):
+                    write = attn.ring_prefill if attn.is_ring(cache) else attn.linear_prefill
+                    write(cache, k, v, T)
+            o, kind = attn.attend(p["attn"], h, h, n_heads=H, n_kv_heads=cfg.n_kv_heads,
+                                  d_head=dh, dtype=dtype, part=part, rope=rope,
+                                  causal=desc.causal, window=desc.window,
+                                  chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
+                                  fill=fill)
+        x = x + constraint(out(o, kind, p["attn"]["wo"]), "batch", None, None)
+        if desc.cross:  # whisper's decoder: K/V of the encoder output
+            hc = part.enter(_norm_apply(cfg, p["cross_ln"], x), sp)
+            if enc is not None:
+                oc, kind = attn.attend(p["cross"], hc, enc, n_heads=H,
+                                       n_kv_heads=cfg.n_kv_heads, d_head=dh, dtype=dtype,
+                                       part=part, causal=False, chunk_q=cfg.attn_chunk_q,
+                                       chunk_k=cfg.attn_chunk_k)
+            else:  # cached once a request
+                qc = attn.q_project(p["cross"], hc, dh, dtype)
+                oc = attn.flash_attention(qc, cache["cross_k"], cache["cross_v"],
+                                          causal=False, chunk_q=cfg.attn_chunk_q,
+                                          chunk_k=cfg.attn_chunk_k)
+                oc, kind = oc.reshape(*oc.shape[:2], -1), "full"
+            x = x + out(oc, kind, p["cross"]["wo"])
     elif desc.kind == "mamba":
         c = cache if cache is not None else {}
         o, (conv_s, ssm_s) = ssm.mamba_forward(
             p["mamba"], h, d_state=cfg.d_state, chunk=cfg.ssm_chunk,
             conv_state=c.get("conv"), ssm_state=c.get("ssm"), dtype=dtype,
-            return_state=True)
+            return_state=True, part=part, d_inner=cfg.ssm_expand * D, sp=sp)
         if cache is not None:
             _write(cache, conv=conv_s, ssm=ssm_s)
         x = x + constraint(o, "batch", None, None)
@@ -279,24 +327,28 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
         c = cache if cache is not None else {}
         o, (wkv, sh_tm) = ssm.rwkv6_time_mix(
             p["rwkv"], h, cfg.n_heads, chunk=cfg.rwkv_chunk, state=c.get("wkv"),
-            shift_state=c.get("shift_tm"), dtype=dtype, return_state=True)
+            shift_state=c.get("shift_tm"), dtype=dtype, return_state=True, part=part,
+            sp=sp)
         x = x + o
-        h2 = _norm_apply(cfg, p["ln2"], x)
+        h2 = part.enter(_norm_apply(cfg, p["ln2"], x), sp)
         o2, sh_cm = ssm.rwkv6_channel_mix(p["rwkv_cm"], h2, shift_state=c.get("shift_cm"),
-                                          dtype=dtype, return_state=True)
+                                          dtype=dtype, return_state=True, part=part,
+                                          d_ff=cfg.d_ff, sp=sp)
         if cache is not None:
             _write(cache, wkv=wkv, shift_tm=sh_tm, shift_cm=sh_cm)
         return x + o2, aux
 
     if desc.ffn == "dense":
-        h = _norm_apply(cfg, p["ln2"], x)
-        x = x + layers.mlp(p["mlp"], h, act=cfg.act, dtype=dtype)
+        h = part.enter(_norm_apply(cfg, p["ln2"], x), sp)
+        x = x + layers.mlp(p["mlp"], h, act=cfg.act, dtype=dtype, part=part, d_ff=cfg.d_ff,
+                           sp=sp)
     elif desc.ffn == "moe":
-        h = _norm_apply(cfg, p["ln2"], x)
+        h = part.enter(_norm_apply(cfg, p["ln2"], x), sp)
         o, moe_aux = moe_mod.moe_apply(
             p["moe"], h, n_experts=cfg.n_experts, k=cfg.experts_per_token,
             capacity_factor=cfg.capacity_factor, groups=moe_groups,
-            router=cfg.router, token_ids=token_ids, act=cfg.act, dtype=dtype)
+            router=cfg.router, token_ids=token_ids, act=cfg.act, dtype=dtype, part=part,
+            d_ff=cfg.d_ff, sp=sp)
         aux = moe_aux["balance_loss"]
         x = x + o
     seq_sh = seq_axis(x.shape[1], x) if cfg.seq_shard_activations else None
@@ -378,8 +430,11 @@ def place_caches(shapes, device, mesh, long_ctx: bool):
 # forward passes
 # ---------------------------------------------------------------------------
 
+TOP = ("embed", "lm_head", "final_norm")
+
+
 def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
-            patch_embeds=None, moe_groups=1):
+            patch_embeds=None, moe_groups=1, part=WHOLE, top=None):
     """tokens: (B, T) integer tensor. Returns (hidden (B,T,D), aux, caches):
     aux is the sum of the MoE layers' balance losses (0 without MoE);
     `caches` are the ones given, written in place (None in 'train' mode).
@@ -388,20 +443,27 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
     'train' mode with gradients on and `cfg.remat`, each block is
     recomputed in the backward (the reference's `jax.checkpoint` of its
     scan body, nothing saved): the same values, activation memory of one
-    residual a block; the tail is not, as in the reference."""
+    residual a block; the tail is not, as in the reference.
+
+    With a `parallel.partition.Partition` (the sharded train step's): the
+    rank's share, hidden in the stream's layout; each block's weights are
+    gathered inside its (remat'd) function, the embedding, final norm and
+    unembedding once (`top`: those already gathered, `part.tops(params,
+    TOP)`)."""
     dtype = compute_dtype(cfg)
     _, subs, tail = block_spec(cfg)
-    x = embed_tokens(params, cfg, tokens, dtype)
-    if patch_embeds is not None:
-        P = patch_embeds.shape[1]
-        x = torch.cat([patch_embeds.to(dtype), x[:, P:]], dim=1)
+    top = top if top is not None else part.tops(params, TOP)
+    sp = part.seq(cfg, tokens.shape[1])
+    x = embed_tokens(top, cfg, tokens, dtype, part=part, sp=sp, patch=patch_embeds)
     x = constraint(x, "batch", seq_axis(tokens.shape[1], x) if cfg.seq_shard_activations
                    else None, None)
     kw = dict(mode=mode, pos_offset=pos_offset, moe_groups=moe_groups, dtype=dtype,
-              token_ids=tokens if cfg.moe and cfg.router == "hash" else None)
+              token_ids=tokens if cfg.moe and cfg.router == "hash" else None, part=part,
+              sp=sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(b, p_block, x, aux):
+        p_block = part.gather(p_block)
         for i, desc in enumerate(subs):
             cache = None if caches is None else {
                 k: t[b] for k, t in caches["blocks"][f"s{i}"].items()}  # views
@@ -415,11 +477,12 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
             x, aux = checkpoint(block, b, p_block, x, aux, use_reentrant=False)
         else:
             x, aux = block(b, p_block, x, aux)
+    p_tail = part.gather(params["tail"]) if tail else None
     for i, desc in enumerate(tail):
         cache = None if caches is None else caches["tail"][f"s{i}"]
-        x, a = apply_sublayer(params["tail"][f"s{i}"], x, desc, cfg, cache=cache, **kw)
+        x, a = apply_sublayer(p_tail[f"s{i}"], x, desc, cfg, cache=cache, **kw)
         aux = aux if a is None else aux + a
-    x = _norm_apply(cfg, params["final_norm"], x)
+    x = _norm_apply(cfg, top["final_norm"], x)
     return x, aux, caches
 
 
@@ -437,39 +500,75 @@ def _chunk_loss(h, W, labels, weights, z_loss):
     return ((lse - ll + zl) * weights).sum()
 
 
-def chunked_ce_loss(params, cfg, hidden, labels, mask=None, z_loss=1e-4):
+def _split_chunk_loss(part, h, W, labels, weights, z_loss):
+    """`_chunk_loss` against the rank's rows of the vocabulary (W its
+    columns): the max, the sum and the label's logit over "model"."""
+    logits = (h @ W).float()                                   # (B, C, V/M)
+    m = part.max_(logits.detach().amax(dim=-1))
+    lse = m + torch.log(part.sum(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    local = labels.long() - part.r * W.shape[1]
+    mine = (local >= 0) & (local < W.shape[1])
+    ll = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    ll = part.sum(torch.where(mine, ll, 0.0))
+    return ((lse - ll + z_loss * lse.square()) * weights).sum()
+
+
+def chunked_ce_loss(params, cfg, hidden, labels, mask=None, z_loss=1e-4, *, part=WHOLE,
+                    sp=False):
     """Mean CE over the (B, T) labels, in T chunks of `cfg.ce_chunk`. With
     gradients on, each chunk is recomputed in the backward (the
     reference's `jax.checkpoint` of its chunk body), so no chunk's logits
-    outlive it."""
-    B, T, D = hidden.shape
+    outlive it. With a `parallel.partition.Partition` of several model
+    ranks (hidden in the stream's layout, `sp`): the rank's share of the
+    mean, each rank counting the tokens it owns -- with the vocabulary
+    split, every token against the rank's rows; else the rank's own
+    tokens."""
+    B, T = labels.shape
     # T gathered across 'model' once; the CE chunks slice an unsharded T
     hidden = constraint(hidden, "batch", None, None)
-    W = unembed_matrix(params, cfg, hidden.dtype)  # (D, V)
-    C = min(cfg.ce_chunk, T)
-    if T % C:
-        raise ValueError(f"sequence length {T} is not a multiple of the CE "
-                         f"chunk {C}")
+    W = unembed_matrix(params, cfg, hidden.dtype)  # (D, V), or the rank's columns
+    count = mask.sum().clamp_min(1) if mask is not None else max(B * T, 1)
     weights = mask.float() if mask is not None else torch.ones(
         B, T, dtype=torch.float32, device=hidden.device)
+    fn = _chunk_loss
+    if W.shape[1] != cfg.vocab_size:  # the rank's rows of the vocabulary
+        hidden, fn = part.enter(hidden, sp), functools.partial(_split_chunk_loss, part)
+        weights = weights * part.owned(B, T, hidden.device)
+    elif sp:  # the rank's positions
+        labels, weights = part.own(labels, sp), part.own(weights, sp)
+    elif part.M > 1:  # every position, each counted by one rank
+        weights = weights * part.owned(B, T, hidden.device)
+    Tl = hidden.shape[1]
+    C = min(cfg.ce_chunk, Tl)
+    if Tl % C:
+        raise ValueError(f"sequence length {Tl} is not a multiple of the CE "
+                         f"chunk {C}")
     remat = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, T, C):
+    for c0 in range(0, Tl, C):
         args = (hidden[:, c0:c0 + C], W, labels[:, c0:c0 + C],
                 weights[:, c0:c0 + C], z_loss)
-        total = total + (checkpoint(_chunk_loss, *args, use_reentrant=False)
-                         if remat else _chunk_loss(*args))
-    return total / (mask.sum().clamp_min(1) if mask is not None else max(B * T, 1))
+        total = total + (checkpoint(fn, *args, use_reentrant=False)
+                         if remat else fn(*args))
+    return total / count
 
 
-def lm_loss(params, cfg, batch, moe_groups=1, balance_coef=0.01):
+def lm_loss(params, cfg, batch, moe_groups=1, balance_coef=0.01, *, part=WHOLE):
     """CE plus `balance_coef` times the MoE balance loss, and the metrics
-    {"ce", "balance"}; the loss carries the gradient of both terms."""
-    hidden, aux, _ = forward(params, cfg, batch["tokens"], mode="train",
+    {"ce", "balance"}; the loss carries the gradient of both terms. With a
+    `parallel.partition.Partition` (the sharded train step's): the rank's
+    share -- the CE of the tokens it owns, the balance loss counted once
+    over the model ranks -- so that the model ranks' losses add up to
+    their rows' loss; "ce" is the rank's CE share, "balance" the whole
+    balance loss."""
+    top = part.tops(params, TOP)
+    tokens = batch["tokens"]
+    hidden, aux, _ = forward(params, cfg, tokens, mode="train",
                              patch_embeds=batch.get("patch_embeds"),
-                             moe_groups=moe_groups)
-    ce = chunked_ce_loss(params, cfg, hidden, batch["labels"], batch.get("mask"))
-    return ce + balance_coef * aux, {"ce": ce, "balance": aux}
+                             moe_groups=moe_groups, part=part, top=top)
+    ce = chunked_ce_loss(top, cfg, hidden, batch["labels"], batch.get("mask"), part=part,
+                         sp=part.seq(cfg, tokens.shape[1]))
+    return ce + balance_coef / part.M * aux, {"ce": ce, "balance": aux}
 
 
 # ---------------------------------------------------------------------------

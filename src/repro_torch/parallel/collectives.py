@@ -33,10 +33,12 @@ from ..core.pytree import flatten_with_paths, map_with_paths
 from ..quality.keygen import fold_in, random_bits, seed_key
 
 
-def quantize_int8(x: torch.Tensor, rng_bits: torch.Tensor):
+def quantize_int8(x: torch.Tensor, rng_bits: torch.Tensor, absmax=None):
     """Stochastic-rounding int8 quantization of f32 `x` with u32 `rng_bits`
-    (int64 values) of its shape. Returns (q int8, scale 0-d f32)."""
-    absmax = x.abs().max() + 1e-12
+    (int64 values) of its shape. Returns (q int8, scale 0-d f32). `absmax`:
+    the largest magnitude of the whole tensor `x` is a chunk of (default
+    `x`'s own)."""
+    absmax = (x.abs().max() if absmax is None else absmax) + 1e-12
     scale = absmax / 127.0
     y = x / scale
     floor = torch.floor(y)
@@ -159,13 +161,14 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, dm, axis: str, traffic=None) -
     return out.movedim(0, dim).contiguous()
 
 
-def all_reduce(t: torch.Tensor, dm, axis: str, traffic=None) -> torch.Tensor:
-    """The sum over the ranks along `axis` of `t`, in place."""
+def all_reduce(t: torch.Tensor, dm, axis: str, traffic=None, op=None) -> torch.Tensor:
+    """The sum (or `op`: a `ReduceOp`) over the ranks along `axis` of `t`,
+    in place."""
     import torch.distributed as dist
 
     group, n = _group(dm, axis)
     if n > 1:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, group=group, op=dist.ReduceOp.SUM if op is None else op)
         _count(traffic, "all_reduce", axis, t.numel() * t.element_size(), n, times=2)
     return t
 

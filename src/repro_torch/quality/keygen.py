@@ -105,6 +105,23 @@ def random_bits(key, shape, device=None) -> torch.Tensor:
     return threefry_2x32(key, count).reshape(shape)
 
 
+def random_bits_at(key, size: int, index: torch.Tensor) -> torch.Tensor:
+    """Elements `index` (int64 flat positions) of `random_bits(key, (size,))`
+    without the others: element j is an output word of the counter pair
+    (j, j + h) or (j - h, j), h half the (even-padded) size, whose pad
+    counter is 0."""
+    if size >= MASK32:
+        raise ValueError(f"{size} words need more than one Threefry block "
+                         "of 2^32 - 1 counters")
+    half = (size + size % 2) // 2
+    lo = index < half
+    x0 = torch.where(lo, index, index - half)
+    x1 = x0 + half
+    x1 = torch.where(x1 < size, x1, torch.zeros_like(x1))
+    y0, y1 = threefry2x32_pair(*key, x0, x1)
+    return torch.where(lo, y0, y1)
+
+
 def battery_key(seed: int = QUALITY_SEED, *ids: int) -> "tuple[int, int]":
     """Fold (seed, *ids) into a key: pure, collision-free derivation."""
     key = seed_key(seed)

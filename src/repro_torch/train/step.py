@@ -9,12 +9,12 @@ that its caller jits).
 group (`parallel.local_world`'s threaded ranks, or one process a rank):
 the state arrives and leaves as the rank's chunks under
 `train_state.state_shardings`, the batch as its shard over the batch axes
-(`parallel.sharding.batch_sharding`). Its schedule is ZeRO-3's: gather the
-parameters, run `gradients` on the local batch, average the gradients
-over the batch ranks and reduce-scatter them into the parameters'
-placements, run the optimizer on the local chunks. The "model" ranks
-compute the same gradients redundantly: there is no tensor-parallel
-compute yet, a difference of schedule from the reference's, not of value.
+(`parallel.sharding.batch_sharding`). It runs the reference's partitioned
+program: the models' training forward given the rank's
+`parallel.partition.Partition` (tensor parallelism over "model", one
+block's weights gathered over the batch axes at a time and its gradient
+reduce-scattered into the rank's chunk in the backward), global
+microbatches; then the optimizer on the rank's chunks.
 """
 from __future__ import annotations
 
@@ -26,8 +26,7 @@ from ..models.convert import reference_leaves
 from ..parallel import sharding as sh
 from .optimizer import Optimizer
 from ..core.pytree import flatten_with_paths, map_with_paths
-from .train_state import (TrainState, block_sharding, copy_to, map_params,
-                          opt_specs, stacked_specs)
+from .train_state import TrainState, block_sharding, copy_to, opt_specs, stacked_specs
 
 
 def _split(batch: dict, grad_accum: int, i: int) -> dict:
@@ -38,15 +37,12 @@ def _split(batch: dict, grad_accum: int, i: int) -> dict:
     return {k: part(v) for k, v in batch.items()}
 
 
-def gradients(api, params, batch, *, moe_groups: int = 1, grad_accum: int = 1,
-              objective=None):
+def gradients(api, params, batch, *, moe_groups: int = 1, grad_accum: int = 1):
     """-> (loss, metrics, grads): grads a list, one entry a reference leaf
     (`models.convert.reference_leaves`): the f32 gradients of its per-block
     tensors, or None for a key plane; the form the optimizer takes. With
     `grad_accum`, the mean over that many equal microbatches; the metrics
-    are the last microbatch's, as the reference's `scan` gives them. With
-    `objective`, objective(loss, metrics) is what is differentiated and
-    returned as the loss."""
+    are the last microbatch's, as the reference's `scan` gives them."""
     leaves = reference_leaves(params)
     trained = [t for leaf in leaves for t in leaf.tensors if t.requires_grad]
     if not trained:
@@ -56,8 +52,6 @@ def gradients(api, params, batch, *, moe_groups: int = 1, grad_accum: int = 1,
     for i in range(grad_accum):
         mb = batch if grad_accum == 1 else _split(batch, grad_accum, i)
         loss, metrics = api.loss(params, mb, moe_groups=moe_groups)
-        if objective is not None:
-            loss = objective(loss, metrics)
         gs = [g.float() for g in torch.autograd.grad(loss, trained)]
         if acc is None:
             acc = gs
@@ -187,39 +181,6 @@ class _Shards:
         return _LeafSums(s, len(s.spec), self.dm, self.traffic)
 
 
-def _reduce_grad(g: torch.Tensor, sharding, coords: dict, batch: tuple, dm, traffic):
-    """The sum over the batch ranks of each rank's full gradient `g`,
-    as this rank's chunk under `sharding`: an all-reduce over the batch
-    axes the layout does not split, a reduce-scatter over those it does,
-    and the rank's slice along the others (whose ranks computed the same
-    gradient)."""
-    from ..parallel.collectives import all_reduce, reduce_scatter_dim
-
-    dim_axes = sharding._dim_axes(g.ndim)
-    used = {a for axes in dim_axes for a in axes}
-    for a in batch:
-        if a not in used:
-            g = all_reduce(g, dm, a, traffic)
-    for d, axes in enumerate(dim_axes):
-        for a in axes:
-            if a in batch:
-                g = reduce_scatter_dim(g, d, dm, a, traffic)
-            else:
-                c = g.shape[d] // sharding.mesh.shape[a]
-                g = g.narrow(d, coords[a] * c, c)
-    return g
-
-
-def _local_chunk(g: torch.Tensor, sharding, coords: dict) -> torch.Tensor:
-    """This rank's chunk of a whole tensor (no communication)."""
-    dim_axes = sharding._dim_axes(g.ndim)
-    for d, axes in enumerate(dim_axes):
-        for a in axes:
-            c = g.shape[d] // sharding.mesh.shape[a]
-            g = g.narrow(d, coords[a] * c, c)
-    return g
-
-
 def _has_moe(api) -> bool:
     return bool(getattr(api.cfg, "n_experts", 0))
 
@@ -234,25 +195,39 @@ def jit_train_step(step_fn: TrainStep, mesh, state: TrainState, batch_ndim_tree,
     each rank passes its part (`train_state.shard`) and gets its updated
     part back, updated in place unless `donate` is False. The batch is the
     rank's shard of each entry of `batch_ndim_tree` (name -> ndim) under
-    `batch_sharding`: its rows of the global batch. `step_fn` is a
-    `make_train_step` step; its `moe_groups` counts the global batch's MoE
-    groups, which must be a multiple of the batch ranks for a model with
-    experts (a group is then some of one rank's tokens). Its `grad_accum`
-    must be 1: the single-device step splits the global batch into
-    microbatches, and splitting each rank's rows instead would give other
-    MoE groups and other token sets to average over. The metrics are
-    the global ones (the loss a mean over all tokens, balance statistics
-    over the global batch through `parallel.sharding.batch_mean`) plus
-    ``traffic``: {"<collective>/<axis>": bytes this rank sent}."""
+    `batch_sharding`: its rows of the global batch.
+
+    Each rank runs the models' training forward on its
+    `parallel.partition.Partition`: its share of the heads, FFN columns,
+    experts, channels and vocabulary over "model", one block's weights
+    gathered over the batch axes at a time (in the dtype the models read
+    each leaf in: `models.convert.held_dtype`), each block's gradient
+    reduce-scattered into the rank's chunk in the backward; then the
+    optimizer on the rank's chunks. `step_fn` is a
+    `make_train_step` step. Its `moe_groups` counts a microbatch's MoE
+    groups over the global batch, a multiple of the batch ranks for a
+    model with experts (a group is then some of one rank's tokens). With
+    `grad_accum` g, microbatch i is rows i B/g .. (i + 1) B/g of the global
+    batch, as the single-device step splits it: the batch is redistributed
+    once (each rank then holds its rows of each microbatch), and a B/g that
+    the batch ranks do not divide is refused. The gradients are the mean
+    over the microbatches, the loss their mean, the other metrics the last
+    microbatch's. The metrics are the global ones (the loss a mean over all
+    tokens, balance statistics over the global batch through
+    `parallel.sharding.batch_mean`) plus ``traffic``: {"<collective>/<axis>":
+    bytes this rank sent}."""
     import torch.distributed as dist
 
+    from ..models.convert import held_dtype
+    from ..models.transformer import compute_dtype
     from ..parallel.collectives import all_gather_dim, all_reduce
+    from ..parallel.partition import Partition
 
     if not isinstance(step_fn, TrainStep):
         raise TypeError("jit_train_step takes a make_train_step step")
-    if step_fn.grad_accum != 1:
-        raise ValueError(f"grad_accum {step_fn.grad_accum}: the sharded step takes "
-                         "no microbatches")
+    g = int(step_fn.grad_accum)
+    if g < 1:
+        raise ValueError(f"grad_accum {g} is not a count of microbatches")
     specs = stacked_specs(state.params, mesh, fsdp_pods)
     shardings = {p: sh.NamedSharding(mesh, s) for p, s in specs.items()}
     # optimizer leaves held in a layout other than the one their update
@@ -266,6 +241,7 @@ def jit_train_step(step_fn: TrainStep, mesh, state: TrainState, batch_ndim_tree,
              for p in held if tuple(held[p]) != tuple(worked[p])}
     batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     n_batch = math.prod(mesh.shape[a] for a in batch_axes)
+    sum_axes = batch_axes + (("model",) if "model" in mesh.axis_names else ())
     groups = step_fn.moe_groups
     if _has_moe(step_fn.api):
         if groups % n_batch:
@@ -275,16 +251,41 @@ def jit_train_step(step_fn: TrainStep, mesh, state: TrainState, batch_ndim_tree,
     for name, nd in dict(batch_ndim_tree).items():
         if nd < 1:
             raise ValueError(f"batch entry {name!r} has no batch dim")
+    compute = compute_dtype(step_fn.api.cfg)
 
     def placed(leaf):
         return block_sharding(leaf, shardings[leaf.path])
 
+    def gather_plans(leaves) -> dict:
+        """id of each float chunk -> (the (dim, axis) it is gathered over,
+        in order; the axes whose ranks hold the same chunk; the dtype the
+        models read it in)."""
+        plans = {}
+        for leaf in leaves:
+            s = placed(leaf)
+            for t in leaf.tensors:
+                if not t.is_floating_point():
+                    continue
+                dim_axes = s._dim_axes(t.ndim)
+                used = {a for axes in dim_axes for a in axes}
+                plans[id(t)] = ([(d, a) for d, axes in enumerate(dim_axes)
+                                 for a in reversed(axes) if a != "model"],
+                                [a for a in mesh.axis_names if a not in used],
+                                held_dtype(tuple(leaf.path.split("/")), compute))
+        return plans
+
     def sharded(local: TrainState, batch: dict):
         dm = sh.device_mesh(mesh)
-        coords = mesh.coords(dist.get_rank())
+        rank = dist.get_rank()
+        coords = mesh.coords(rank)
         traffic: dict = {}
         if not donate:
             local = copy_to(local, next(iter(local.params.parameters())).device)
+        device = next(iter(local.params.parameters())).device
+        leaves = reference_leaves(local.params)
+        trained = [t for leaf in leaves for t in leaf.tensors if t.requires_grad]
+        part = Partition(mesh.shape.get("model", 1), coords.get("model", 0), dm,
+                         gather_plans(leaves), traffic)
 
         def whole(t, s):
             for d, axes in enumerate(s._dim_axes(t.ndim)):
@@ -292,58 +293,138 @@ def jit_train_step(step_fn: TrainStep, mesh, state: TrainState, batch_ndim_tree,
                     t = all_gather_dim(t, d, dm, a, traffic)
             return t
 
-        def gather(leaf, t):
-            return whole(t, placed(leaf))
-
-        def relaid(path, t, src, dst):
-            return _local_chunk(whole(t, src), dst, coords).clone()
+        def relaid(t, src, dst):
+            return dst.local(whole(t, src), rank).clone()
 
         # a backward on the rank's own thread, where its process group and
-        # mesh are (a recompute may take part in a collective)
+        # mesh are (a recompute takes part in collectives)
         with sh.use_mesh(mesh), torch.autograd.set_multithreading_enabled(False):
-            full = map_params(local.params, gather)
-            w = _token_weight(batch, dm, batch_axes, n_batch, traffic, mesh.devices[0])
-            objective = None if w == 1.0 else (
-                lambda loss, metrics: loss + (w - 1.0) * metrics["ce"])
-            loss, metrics, grads = gradients(step_fn.api, full, batch, moe_groups=groups,
-                                             objective=objective)
-            leaves = reference_leaves(local.params)
+            mbs = _microbatches({k: torch.as_tensor(v, device=device)
+                                 for k, v in batch.items()},
+                                g, dm, coords, batch_axes, mesh, traffic)
+            acc, loss_sum = None, 0.0
+            for mb in mbs:
+                w = _token_weight(mb, dm, batch_axes, n_batch, traffic, mesh.devices[0])
+                # the rank's share: the CE of the tokens it owns, the balance
+                # loss counted once over the model ranks
+                loss, metrics = step_fn.api.loss(local.params, mb, moe_groups=groups,
+                                                 part=part)
+                ce, aux = metrics["ce"], metrics["balance"]
+                objective = loss if w == 1.0 else loss + (w - 1.0) * ce
+                gs = [x.float() for x in torch.autograd.grad(objective, trained)]
+                if acc is None:
+                    acc = gs
+                else:
+                    torch._foreach_add_(acc, gs)
+                loss_sum = loss_sum + objective.detach()
+            torch._foreach_mul_(acc, 1.0 / (g * n_batch))
+            it = iter(acc)
+            grads = [[next(it) for _ in leaf.tensors] if leaf.tensors[0].requires_grad
+                     else None for leaf in leaves]
             if step_fn.compress_pod_grads:
                 # the reference compresses the whole averaged gradient
-                for g in grads:
-                    for x in g or ():
-                        for a in batch_axes:
-                            all_reduce(x, dm, a, traffic)
-                        x.div_(n_batch)
-                grads = _compressed(reference_leaves(full), grads)
-                local_grads = [None if g is None else
-                               [_local_chunk(x, placed(leaf), coords).contiguous() for x in g]
-                               for leaf, g in zip(leaves, grads)]
-            else:
-                local_grads = [None if g is None else
-                               [_reduce_grad(x, placed(leaf), coords, batch_axes, dm,
-                                             traffic).div_(n_batch) for x in g]
-                               for leaf, g in zip(leaves, grads)]
-            del full, grads
+                grads = _compressed_chunks(leaves, grads, placed, rank, dm, traffic)
             work = map_with_paths(
-                lambda p, t: relaid(p, t, *moved[p]) if p in moved else t, local.opt_state)
+                lambda p, t: relaid(t, *moved[p]) if p in moved else t, local.opt_state)
             params, work, opt_metrics = step_fn.optimizer.update(
-                local_grads, work, local.params, local.step,
+                grads, work, local.params, local.step,
                 shards=_Shards(shardings, dm, traffic))
             out = dict(flatten_with_paths(work))
             for p, t in flatten_with_paths(local.opt_state):
                 if p in moved:
-                    t.copy_(relaid(p, out[p], *moved[p][::-1]))
-            stats = torch.stack([loss.detach().float(), w * metrics["ce"].float(),
-                                 metrics["balance"].float()])
-            for a in batch_axes:
+                    t.copy_(relaid(out[p], *moved[p][::-1]))
+            # the balance loss is every model rank's: counted once
+            stats = torch.stack([loss_sum.float() / g, w * ce.detach().float(),
+                                 aux.detach().float() * float(part.r == 0)])
+            for a in sum_axes:
                 all_reduce(stats, dm, a, traffic)
             stats /= n_batch
-        metrics = dict(metrics, ce=stats[1], balance=stats[2], loss=stats[0],
-                       **opt_metrics, traffic=traffic)
+        metrics = dict(ce=stats[1], balance=stats[2], loss=stats[0], **opt_metrics,
+                       traffic=traffic)
         return TrainState(local.step + 1, params, local.opt_state), metrics
 
     return sharded
+
+
+def _microbatches(batch: dict, g: int, dm, coords: dict, batch_axes, mesh,
+                  traffic) -> list:
+    """The rank's rows of each of the g microbatches of the global batch
+    (microbatch i: global rows i B/g .. (i + 1) B/g, split over the batch
+    ranks in their order): each entry gathered whole over the batch axes
+    once, then sliced, so every rank holds the global batch for a moment:
+    4 B T bytes of tokens a token entry, and whisper's f32 frames, B x
+    1,500 x 1,280 x 4 bytes (7.7 MB a row). A rank keeps its B/n rows."""
+    from ..parallel.collectives import all_gather_dim
+
+    if g == 1:
+        return [batch]
+    n = math.prod(mesh.shape[a] for a in batch_axes)
+    rows = {x.shape[0] for x in batch.values()}
+    if len(rows) != 1 or next(iter(rows)) % g:
+        B = max(rows) * n
+        raise ValueError(f"{B} rows in {g} microbatches of {B / g:g} do not split "
+                         f"over the {n} batch ranks")
+    idx = 0
+    for a in batch_axes:
+        idx = idx * mesh.shape[a] + coords[a]
+    out = [{} for _ in range(g)]
+    for name, x in batch.items():
+        full = x
+        for a in reversed(batch_axes):
+            full = all_gather_dim(full, 0, dm, a, traffic)
+        m = x.shape[0] // g
+        for i in range(g):
+            out[i][name] = full[(i * n + idx) * m:(i * n + idx + 1) * m]
+    return out
+
+
+def _flat_index(slices, shape, device) -> torch.Tensor:
+    """The flat (row-major) positions in `shape` of the chunk `slices`."""
+    nd = len(shape)
+    idx = torch.zeros((1,) * nd, dtype=torch.int64, device=device)
+    for d, sl in enumerate(slices):
+        view = [1] * nd
+        view[d] = -1
+        stride = math.prod(shape[d + 1:])
+        idx = idx + (torch.arange(sl.start, sl.stop, device=device) * stride).view(view)
+    return idx
+
+
+def _compressed_chunks(leaves, grads, placed, rank: int, dm, traffic) -> list:
+    """`_compressed` of the whole averaged gradients on this rank's chunks:
+    a leaf's scale from its largest magnitude over every rank (a max over
+    each mesh axis), the random bits this rank's slice of the whole
+    (stacked) leaf's draw."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import all_reduce, dequantize_int8, quantize_int8
+    from ..quality.keygen import fold_in, random_bits_at, seed_key
+
+    device = next(x for gl in grads if gl is not None for x in gl).device
+    maxes = torch.stack([torch.stack([x.abs().max() for x in gl]).max().float()
+                         if gl is not None else torch.zeros((), device=device)
+                         for gl in grads])
+    for a in dm.mesh_dim_names:
+        all_reduce(maxes, dm, a, traffic, op=dist.ReduceOp.MAX)
+    key = seed_key(0)
+    out = []
+    for i, (leaf, gl) in enumerate(zip(leaves, grads)):
+        if gl is None:
+            out.append(None)
+            continue
+        s = placed(leaf)
+        local = tuple(leaf.tensors[0].shape)
+        shape = tuple(n * sh._axis_size(s.mesh, axes) if axes else n
+                      for n, axes in zip(local, s._dim_axes(len(local))))
+        size = math.prod(shape)
+        new = []
+        for b, x in enumerate(gl):
+            index = b * size + _flat_index(s.chunk(shape, rank), shape, x.device)
+            bits = random_bits_at(fold_in(key, i), size * len(gl), index)
+            q, scale = quantize_int8(x.float(), bits, absmax=maxes[i])
+            new.append(dequantize_int8(q, scale).to(x.dtype))
+        out.append(new)
+    return out
 
 
 def _token_weight(batch: dict, dm, batch_axes, n_batch, traffic, device) -> float:

@@ -1,13 +1,16 @@
 """Shared cases of `tests/test_torch_sharded_step*.py`: the sharded train
 step (`repro_torch.train.jit_train_step`) on worlds of threaded CPU ranks
 (`repro_torch.parallel.local_world`) against the reference's unsharded
-step. Three files, so that `--dist loadfile` spreads them.
+step. One file a case or two, so that each stays under 30 s on one core
+and `--dist loadfile` spreads them. The other families' sharded steps
+are held against the reference in their `tests/test_torch_train_*.py`
+files, on the reference run those files compile anyway.
 
 Smoke configs in f32, 2 steps (lr 1e-3, no warmup) from the reference's
 `init_state`, carried across by `train_state.from_reference`. The
 reference's `make_train_step` runs with `moe_groups` equal to the batch
 ranks (a rank's tokens are one MoE group, as the reference's dry run sets
-it) on the same seeded batches. Its init and step are jitted at XLA's
+it) and the case's `grad_accum` on the same seeded batches. Its init and step are jitted at XLA's
 backend optimization level 0 (`REFERENCE_XLA`): the same program,
 compiled in a third of the time. Each rank's chunks of the state after
 each step are held against the same chunks of the reference's state, with
@@ -21,6 +24,7 @@ they are not bit for bit.
 """
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -46,15 +50,28 @@ REFERENCE_XLA = {"xla_backend_optimization_level": 0,
 LR = dict(peak_lr=1e-3, warmup_steps=0)
 FLIPS = 64
 B, T, N_STEPS = 8, 16, 2
+POD = ("pod", "data", "model")
+
+
+class Case(NamedTuple):
+    arch: str
+    dims: tuple
+    axes: tuple = ("data", "model")
+    fsdp_pods: bool = False
+    masked: bool = False        # a mask whose token counts differ by rank
+    grad_accum: int = 1
+
+
 CASES = {
-    # (arch, mesh dims, axes, fsdp_pods, a mask with counts that differ by rank)
-    "granite_adamw_2x2": ("granite_moe_1b_a400m", (2, 2), ("data", "model"), False, False),
-    "granite_hash_2x2x2": ("granite_moe_hash", (2, 2, 2), ("pod", "data", "model"),
-                           False, False),
-    "llama4_adafactor_fsdp_pods_2x2x2": ("llama4_maverick_400b_a17b", (2, 2, 2),
-                                         ("pod", "data", "model"), True, False),
-    "mistral_masked_2x2x2": ("mistral_nemo_12b", (2, 2, 2), ("pod", "data", "model"),
-                             False, True),
+    "granite_adamw_2x2": Case("granite_moe_1b_a400m", (2, 2)),
+    "granite_masked_accum2_2x2": Case("granite_moe_1b_a400m", (2, 2), masked=True,
+                                      grad_accum=2),
+    "granite_hash_2x2x2": Case("granite_moe_hash", (2, 2, 2), POD),
+    "llama4_adafactor_fsdp_pods_2x2x2": Case("llama4_maverick_400b_a17b", (2, 2, 2), POD,
+                                             fsdp_pods=True),
+    "mistral_masked_2x2x2": Case("mistral_nemo_12b", (2, 2, 2), POD, masked=True),
+    # four ranks share one KV head's columns
+    "phi3_1x8": Case("phi3_medium_14b", (1, 8)),
 }
 
 
@@ -78,17 +95,19 @@ def batch_ranks(dims, axes) -> int:
 @functools.lru_cache(maxsize=None)
 def reference_run(case):
     """The reference's jitted unsharded step (`moe_groups` = the batch
-    ranks) from its init_state (key 0), both jitted with `REFERENCE_XLA`, -> (the first state, the batches,
-    each step's state and metrics), as numpy."""
-    arch, dims, axes, _, masked = CASES[case]
-    jc = dataclasses.replace(jget(arch, smoke=True), dtype="float32")
+    ranks) from its init_state (key 0), both jitted with `REFERENCE_XLA`,
+    -> (the first state, the batches, each step's state and metrics), as
+    numpy."""
+    c = CASES[case]
+    jc = dataclasses.replace(jget(c.arch, smoke=True), dtype="float32")
     japi = jbuild(jc)
     jopt = jmake_optimizer(jc.optimizer, JSchedule(**LR))
     jstate = jax.jit(lambda k: jinit_state(japi, jopt, k),
                      compiler_options=REFERENCE_XLA)(jax.random.key(0))
-    run = jax.jit(jmake_train_step(japi, jopt, moe_groups=batch_ranks(dims, axes)),
+    run = jax.jit(jmake_train_step(japi, jopt, moe_groups=batch_ranks(c.dims, c.axes),
+                                   grad_accum=c.grad_accum),
                   compiler_options=REFERENCE_XLA)
-    first, data = jax.tree.map(np.asarray, jstate), batches(jc, masked)
+    first, data = jax.tree.map(np.asarray, jstate), batches(jc, c.masked)
     states, metrics = [], []
     for b in data:
         jstate, m = run(jstate, {k: jnp.asarray(v) for k, v in b.items()})
@@ -120,26 +139,27 @@ def assert_close(got, want, lr_sum: float) -> None:
 def check_matches_reference(case):
     """Every rank's chunks and the metrics after each step == the
     reference's unsharded step's (`reference_run`)."""
-    arch, dims, axes, fsdp, _ = CASES[case]
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    c = CASES[case]
+    cfg = dataclasses.replace(get_config(c.arch, smoke=True), dtype="float32")
     api = build(cfg)
     opt = make_optimizer(cfg.optimizer, Schedule(**LR))
     first, data, ref_states, metrics = reference_run(case)
     state = from_reference(cfg, first, device="cpu")
     states = [from_reference(cfg, s, device="cpu") for s in ref_states]
-    mesh = Mesh((torch.device("cpu"),) * int(np.prod(dims)), axes, dims)
-    step = make_train_step(api, opt, moe_groups=batch_ranks(dims, axes))
+    mesh = Mesh((torch.device("cpu"),) * int(np.prod(c.dims)), c.axes, c.dims)
+    n_batch = batch_ranks(c.dims, c.axes)
+    step = make_train_step(api, opt, moe_groups=n_batch, grad_accum=c.grad_accum)
     sharded = jit_train_step(step, mesh, state, {k: v.ndim for k, v in data[0].items()},
-                             fsdp_pods=fsdp)
+                             fsdp_pods=c.fsdp_pods)
 
     def rank(r):
-        local, out = shard(state, mesh, r, fsdp), []
+        local, out = shard(state, mesh, r, c.fsdp_pods), []
         for b in data:
             lb = {k: batch_sharding(mesh, v.ndim).local(torch.from_numpy(v), r)
                   for k, v in b.items()}
             local, m = sharded(local, lb)
             out.append((copy_to(local, "cpu"), m))
-        return [(s, m, shard(w, mesh, r, fsdp)) for (s, m), w in zip(out, states)]
+        return [(s, m, shard(w, mesh, r, c.fsdp_pods)) for (s, m), w in zip(out, states)]
 
     lr_sum = 0.0
     for i, per_rank in enumerate(zip(*local_world.run(rank, mesh))):
@@ -151,4 +171,7 @@ def check_matches_reference(case):
             for k in ("loss", "ce", "balance", "grad_norm", "lr"):
                 np.testing.assert_allclose(float(m[k]), want_m[k], rtol=1e-4,
                                            atol=1e-6, err_msg=k)
-            assert m["traffic"]["reduce_scatter/data"] > 0
+            if n_batch > 1:
+                assert m["traffic"]["reduce_scatter/data"] > 0
+            else:
+                assert m["traffic"]["reduce_scatter/model"] > 0

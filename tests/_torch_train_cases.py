@@ -58,9 +58,10 @@ from repro_torch.configs import get_config as tget
 from repro_torch.core.pytree import flatten_with_paths
 from repro_torch.models import build as tbuild
 from repro_torch.models import params_from_jax
-from repro_torch.train import Schedule, make_optimizer, make_train_step
+from repro_torch.parallel import Mesh, batch_sharding, local_world
+from repro_torch.train import Schedule, jit_train_step, make_optimizer, make_train_step
 from repro_torch.train.step import reference_grads
-from repro_torch.train.train_state import from_reference
+from repro_torch.train.train_state import copy_to, from_reference, shard, to_reference
 
 FAMILIES = ["mistral_nemo_12b", "gemma3_27b_hashed", "granite_moe_1b_a400m",
             "granite_moe_hash", "llama4_maverick_400b_a17b", "rwkv6_1_6b",
@@ -228,6 +229,48 @@ def check_three_steps(name, **kw):
     assert_steps_close(*run_steps(name, **kw))
 
 
+def check_sharded_steps(name, dims, axes=("data", "model"), metric_rtol=1e-4,
+                        state_rtol=1e-3, **kw):
+    """The sharded train step (`jit_train_step`) of the same three steps as
+    `reference_steps(name, **kw)`, on a world of threaded CPU ranks shaped
+    `dims` over `axes`, each rank from its chunks of the same state on its
+    rows of the same batches: each step's metrics on every rank, and every
+    rank's chunks after the last step against the same chunks of the
+    reference's state, within `assert_steps_close`'s bounds. The
+    reference's run is the one the family's other tests compile
+    (`reference_steps` is cached). The flips are not counted on leaves
+    whose first gradient is 0 in exact arithmetic (within the gradient
+    tests' 1e-7 at the reference: whisper's key biases, ~1e-10): a split
+    of the sums gives their noise other signs."""
+    _, tc = configs(name)
+    first, batches, _, grads, jmetrics, jstate = reference_steps(name, **kw)
+    noise = frozenset(f".params/{p}" for p, g in (grads or {}).items()
+                      if np.abs(g).max(initial=0.0) <= 1e-7)
+    state = from_reference(tc, first, device="cpu")
+    want = from_reference(tc, jstate, device="cpu")
+    mesh = Mesh((torch.device("cpu"),) * int(np.prod(dims)), axes, dims)
+    step = make_train_step(tbuild(tc), make_optimizer(tc.optimizer, Schedule(**LR)), **kw)
+    sharded = jit_train_step(step, mesh, state, {k: v.ndim for k, v in batches[0].items()})
+
+    def rank(r):
+        local, metrics = shard(state, mesh, r), []
+        for b in batches:
+            local, m = sharded(local, {k: batch_sharding(mesh, v.ndim).local(
+                torch.from_numpy(v), r) for k, v in b.items()})
+            metrics.append(m)
+        return copy_to(local, "cpu"), metrics, to_reference(shard(want, mesh, r))
+
+    lrs = sum(float(jm["lr"]) for jm in jmetrics)
+    for local, metrics, chunks in local_world.run(rank, mesh):
+        for jm, m in zip(jmetrics, metrics):
+            for k in jm:
+                np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=metric_rtol,
+                                           atol=1e-6, err_msg=k)
+        assert int(local.step) == len(batches)
+        flips = train_states_close(chunks, local, lrs, state_rtol, noise)
+        assert flips <= FLIPS, flips
+
+
 def check_compress_pod_grads():
     """int8 compression in the step, with the reference's bits (its
     original Threefry layout). mistral has no integer leaves: the
@@ -235,3 +278,13 @@ def check_compress_pod_grads():
     with jax.threefry_partitionable(False):
         assert_steps_close(*run_steps("mistral_nemo_12b", compress_pod_grads=True),
                            metric_rtol=1e-3, state_rtol=2e-2)
+
+
+def check_sharded_compress_pod_grads():
+    """`check_compress_pod_grads`'s steps on a (pod 2, data 1, model 2)
+    world: each rank quantizes its chunks of the whole averaged gradient
+    with the whole leaf's scale (a max over every rank) and its slice of
+    the whole leaf's random bits."""
+    with jax.threefry_partitionable(False):
+        check_sharded_steps("mistral_nemo_12b", (2, 1, 2), ("pod", "data", "model"),
+                            metric_rtol=1e-3, state_rtol=2e-2, compress_pod_grads=True)

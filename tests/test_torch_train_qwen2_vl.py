@@ -2,7 +2,8 @@
 CPU (cases and tolerances: `tests/_torch_train_cases.py`)."""
 import pytest
 
-from _torch_train_cases import check_loss_and_grads, check_three_steps
+from _torch_train_cases import (check_loss_and_grads, check_sharded_steps,
+                                check_three_steps)
 
 
 @pytest.mark.parametrize("name", ["qwen2_vl_72b"])
@@ -13,3 +14,9 @@ def test_loss_and_grads_match_reference(name):
 @pytest.mark.parametrize("name", ["qwen2_vl_72b"])
 def test_three_steps_match_reference(name):
     check_three_steps(name)
+
+
+@pytest.mark.parametrize("dims", [(2, 2)], ids=["2x2"])
+def test_sharded_steps_match_reference(dims):
+    """Patch embeddings, M-RoPE and the attention biases on the split heads."""
+    check_sharded_steps("qwen2_vl_72b", dims)
