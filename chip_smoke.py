@@ -286,16 +286,23 @@ check exits non-zero. The last line is the JSON device record.
     b. 13b's cell on a fake (2, 2, 2) world: the bytes rank 0 sends
        (printed), and its collectives equal the census of one real step
        of the same cell on 8 threaded ranks on the card;
-    c. sharded serving (DTensors at the serving placements, caches at
-       `cache_shardings`) on a threaded (data 2, model 2) world on the
-       card: a 512-token prefill and 8 ticks of mistral_nemo_12b and
-       granite_moe_hash (2 layers) and gemma3_27b (6 layers, B 1: the
-       long-context layout) == the single-device port within 2e-3 in f32;
-       the census of a prefill and a decode cell on that world == the dry
-       run's on a fake world of its shape;
+    c. sharded serving (each rank's chunks of the weights at the serving
+       rules and of the caches at `cache_shardings`, the models' prefill
+       and decode on its `ServingPartition`) on a threaded (data 2, model
+       2) world on the card: a 512-token prefill and 8 ticks of
+       mistral_nemo_12b and granite_moe_hash (2 layers) and gemma3_27b (6
+       layers, B 1: the long-context layout) == the single-device port
+       within 2e-3 in f32; the census of a prefill and a decode cell on
+       that world == the dry run's on a fake world of its shape;
     d. `python -m repro_torch.launch.dryrun` in subprocesses on production
        cells of each shape kind, both meshes, and a skipped cell: no
-       `error` record.
+       `error` record;
+    e. sequence-parallel prefill at length: mistral_nemo_12b at its
+       published width (2 layers, f32), B 2 x 32,768 tokens on a threaded
+       (data 1, model 4) world == the single-device port's prefill within
+       2e-3; each rank's share of the card's `max_memory_allocated` over
+       the world's prefill == the dry run's peak a rank of the same cell
+       within 10 %.
 """
 from __future__ import annotations
 
@@ -3401,6 +3408,9 @@ CLI_14 = (("granite_moe_1b_a400m", "train_4k"), ("granite_moe_1b_a400m", "prefil
           ("granite_moe_1b_a400m", "decode_32k"), ("rwkv6_1_6b", "long_500k"),
           ("mistral_nemo_12b", "long_500k"))
 CLI_TIMEOUT_14 = 120  # seconds for all of them (one process a cell, at once)
+# 14e: a long prefill on a threaded (data 1, model 4) world
+WORLD_14E = ((1, 4), ("data", "model"))
+PREFILL_14E, B_14E = 32768, 2
 
 
 def train_specs(port, B: int, T: int) -> dict:
@@ -3512,9 +3522,10 @@ def census_vs_13b(port: Port, device, card: str) -> dict:
 def sharded_serving(port: Port, device, card: str, name: str, n_layers: int,
                     B: int) -> dict:
     """14c: prefill of PREFILL_14 tokens and TICKS_14 decode ticks on a
-    threaded (data 2, model 2) world on the card, weights at the serving
-    placements (DTensors), f32 with TF32 off: every rank's gathered logits
-    == the single-device port's within PARITY_TOL. Then the census of a
+    threaded (data 2, model 2) world on the card, each rank its chunks of
+    the weights at the serving rules and its batch rows (`ss.Layout`),
+    f32 with TF32 off: every rank's logits (its rows, every column) ==
+    the single-device port's within PARITY_TOL. Then the census of a
     prefill cell and a decode cell on the real world == the same cells'
     dry run on a fake world of that shape (mesh on the card)."""
     import gc
@@ -3550,28 +3561,27 @@ def sharded_serving(port: Port, device, card: str, name: str, n_layers: int,
         single_s = time.perf_counter() - t0
         del caches
 
-        def on_mesh(x, r):
-            return ss.replicated(x, mesh) if long_ctx else ss.shard_batch(x, mesh, r)
+        layout = ss.Layout(mesh, B, S)
 
         def rank(r):
             p = ss.shard_params(params, mesh, r)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, c = ss.prefill(api, p, {"tokens": on_mesh(toks, r)},
-                               cache_len=S, moe_groups=groups)
-            out = [lg.full_tensor()]
+            lg, c = ss.prefill(api, p, {"tokens": layout.rows(toks, r)}, layout,
+                               moe_groups=groups)
+            out = [lg]
             for i, t in enumerate(ticks):
-                lg, c = ss.decode_step(api, p, c, on_mesh(t, r), PREFILL_14 + i,
-                                       moe_groups=groups)
-                out.append(lg.full_tensor())
+                lg, c = ss.decode_step(api, p, c, layout.rows(t, r), PREFILL_14 + i,
+                                       layout, moe_groups=groups)
+                out.append(lg)
             torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
+            return layout.rows(torch.arange(B, device=device), r), out, time.perf_counter() - t0
 
         res = port.local_world.run(rank, mesh)
-        err = max(agree(port, got, want, f"{tag}: rank {r} step {i}")
-                  for r, (outs, _) in enumerate(res) for i, (got, want)
+        err = max(agree(port, got, want[rows], f"{tag}: rank {r} step {i}")
+                  for r, (rows, outs, _) in enumerate(res) for i, (got, want)
                   in enumerate(zip(outs, wants)))
-        world_s = max(s for _, s in res)
+        world_s = max(s for _, _, s in res)
         del res, params, wants
         gc.collect()  # the ranks' frames hold their chunks in cycles
         torch.cuda.empty_cache()
@@ -3599,12 +3609,99 @@ def sharded_serving(port: Port, device, card: str, name: str, n_layers: int,
                   f"{w['total_bytes']} (trace {dry['trace_s']} s)")
             check(same, f"{tag}: the {kind} cell's census differs between the fake "
                   "and the real world")
+            del real
+            gc.collect()  # the ranks' frames hold their chunks in cycles
             torch.cuda.empty_cache()
     print(f"{tag}: every rank's logits == the single-device port within {PARITY_TOL} "
           f"(max abs err {err:.3e}); prefill {PREFILL_14} + {TICKS_14} ticks: world "
           f"{world_s:.3f} s, single device {single_s:.3f} s")
     return {"config": tag, "max_abs_err": err, "world_s": world_s, "single_s": single_s,
             "census": census, "card": card}
+
+
+def long_prefill(port: Port, device, card: str) -> dict:
+    """14e: SERVE_ARCH at its published width cut to 2 layers, f32 with
+    TF32 off, B_14E rows of PREFILL_14E tokens: the single-device port's
+    prefill first (then freed), then the same prefill on a threaded (data
+    1, model 4) world on the card, each rank its chunks of the weights
+    (copies; the whole weights freed before the world starts): every
+    rank's logits == the single-device port's within PARITY_TOL, and each
+    rank's share of the card's `max_memory_allocated` over the world's
+    prefill (its chunks counted, what earlier phases hold not) == the dry
+    run's peak a rank (arguments + temp) of the same cell on a fake world
+    within PEAK_TOL_14."""
+    import gc
+
+    torch = port.torch
+    ss = port.serve_sharded
+    full = port.get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+    api = port.build_model(cfg)
+    dims, names = WORLD_14E
+    mesh = port.Mesh((device,) * math.prod(dims), names, dims)
+    B, T = B_14E, PREFILL_14E
+    tag = f"14e {SERVE_ARCH} (n_layers {full.n_layers} -> 2, f32), B {B} x T {T} on {dims}"
+    gc.collect()  # earlier worlds' chunks, held in their frames' cycles
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    toks = torch.from_numpy(np.random.default_rng(SEED + 145).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)).to(device)
+    with f32_products(torch):
+        params = api.init(torch.Generator(device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, caches = api.prefill(params, {"tokens": toks}, cache_len=T)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        single_peak = torch.cuda.max_memory_allocated()
+        del caches
+        layout = ss.Layout(mesh, B, T)
+        chunks = [ss.shard_params(params, mesh, r) for r in range(mesh.size)]
+        chunk_bytes = sum(t.numel() * t.element_size() for p in chunks
+                          for t in [*p.parameters(), *p.buffers()])
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - chunk_bytes  # not the world's
+        torch.cuda.reset_peak_memory_stats()
+
+        def rank(r):
+            lg, _ = ss.prefill(api, chunks[r], {"tokens": layout.rows(toks, r)}, layout)
+            torch.cuda.synchronize()
+            return lg
+
+        t0 = time.perf_counter()
+        got = port.local_world.run(rank, mesh)
+        world_s = time.perf_counter() - t0
+        share = (torch.cuda.max_memory_allocated() - held) / mesh.size
+        err = max(agree(port, g, want, f"{tag}: rank {r}") for r, g in enumerate(got))
+        del got, chunks, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    shape = port.ShapeSpec("prefill_14e", "prefill", T, B)
+    dry = port.dryrun.run_cell(SERVE_ARCH, shape.name, "1x4", mesh=mesh, shape=shape,
+                               cfg=cfg)
+    m = dry["memory"]
+    rel = (m["peak_bytes"] - share) / share
+    print(f"{tag}: every rank's logits == the single-device port within {PARITY_TOL} "
+          f"(max abs err {err:.3e}); world {world_s:.3f} s, single device {single_s:.3f} s "
+          f"(its peak {(single_peak - held0) / 1e9:.3f} GB above the {held0 / 1e9:.3f} GB "
+          f"earlier phases hold); a rank's share of the card's "
+          f"max_memory_allocated {share / 1e9:.3f} GB, the dry run's peak a rank "
+          f"{m['peak_bytes'] / 1e9:.3f} GB ({m['argument_bytes'] / 1e9:.3f} GB arguments, "
+          f"{m['temp_bytes'] / 1e9:.3f} GB temp; dry run / card - 1 = {rel:+.4f}, bound "
+          f"{PEAK_TOL_14}); dot FLOPs a rank {dry['cost']['flops']:.4e}, collectives "
+          f"{dry['collectives']['total_bytes'] / 1e9:.3f} GB a rank (sent "
+          f"{dry['collectives']['traffic'] / 1e9:.3f}), trace {dry['trace_s']} s")
+    check(abs(rel) <= PEAK_TOL_14, f"{tag}: the dry run's peak a rank is {rel:+.4f} off "
+          "the card's share")
+    return {"config": tag, "max_abs_err": err, "world_s": world_s, "single_s": single_s,
+            "single_peak_bytes": single_peak - held0, "held_bytes": held0,
+            "share_bytes": share, "dry": m,
+            "dry_flops": dry["cost"]["flops"], "dry_collectives": dry["collectives"],
+            "peak_rel": rel, "card": card}
 
 
 def dryrun_cli(port: Port, card: str, out_dir: Path) -> dict:
@@ -3906,6 +4003,8 @@ def main() -> int:
                                                                    name, n_layers, B)
         with phase("phase 14d: the dry run's CLI on production cells"):
             dry14["cli"] = dryrun_cli(port, card, ROOT / "chiprun_out" / "dryrun_14")
+        with phase("phase 14e: sequence-parallel prefill at 32,768 tokens"):
+            dry14["long_prefill"] = long_prefill(port, device, card)
         counts14 = port.counts()
         print(f"phase 14 launches: {counts14} (the dry run launches no kernel)")
         check(not any(counts14.values()), f"phase 14 launched kernels: {counts14}")

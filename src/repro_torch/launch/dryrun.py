@@ -6,12 +6,13 @@ cell over 512 fake host devices and reads XLA's memory and cost analyses
 and the HLO text. The port runs the cell's own sharded program -- the
 sharded train step (`train.jit_train_step`: the models' training forward
 on each rank's `parallel.partition.Partition`, tensor-parallel over
-"model" with one block's weights gathered at a time) or sharded prefill and decode
-(`serve.sharded`, DTensors at the serving placements) -- as rank 0
-of a fake process group of 256 or 512 ranks (`parallel.fake_world`), on
-tensors of `FakeTensorMode` (shapes, no storage), under the census
-(`launch.op_analysis`). The numbers are the cost of that program per rank,
-not XLA's.
+"model" with one block's weights gathered at a time) or sharded prefill
+and decode (`serve.sharded`: the models' prefill and decode on the rank's
+`parallel.partition.ServingPartition`, weights at the serving rules,
+caches at `cache_pspec`) -- as rank 0 of a fake process group of 256 or
+512 ranks (`parallel.fake_world`), on tensors of `FakeTensorMode`
+(shapes, no storage), under the census (`launch.op_analysis`). The
+numbers are the cost of that program per rank, not XLA's.
 
 Run one cell:   python -m repro_torch.launch.dryrun --arch yi_34b \\
                     --shape train_4k --mesh single --out results/
@@ -60,7 +61,7 @@ import torch
 from ..configs import SHAPES, ShapeSpec, get_config, list_configs
 from ..models import build
 from ..models.encdec import decoder_cache_shapes
-from ..models.transformer import compute_dtype, init_caches, place_caches
+from ..models.transformer import compute_dtype, init_caches, local_caches
 from ..parallel import sharding as sh
 from ..parallel.sharding import cache_pspec, cache_shardings  # noqa: F401  (the reference's names)
 from ..serve import sharded as ss
@@ -112,13 +113,6 @@ def _batch_local(specs: dict, mesh, device, vocab: int) -> dict:
     return out
 
 
-def _batch_dtensors(specs: dict, mesh, device, vocab: int) -> dict:
-    """The batch as DTensors at `batch_sharding` (the serving input)."""
-    local = _batch_local(specs, mesh, device, vocab)
-    return {name: sh.dtensor(local[name], _batch_placement(mesh, shape), shape)
-            for name, (shape, _) in specs.items()}
-
-
 def build_cell(arch: str, shape: ShapeSpec, mesh, *, device, cfg=None, rank: int = 0,
                batch_specs: dict | None = None):
     """-> (fn, args, extra): fn(*args) is the program of rank `rank` of
@@ -151,26 +145,27 @@ def build_cell(arch: str, shape: ShapeSpec, mesh, *, device, cfg=None, rank: int
     # the weights' shapes (no rank materializes the whole model)
     params = ss.local_params(_meta_params(cfg), mesh, dtype=compute_dtype(cfg),
                              device=device)
+    layout = ss.Layout(mesh, B, T)
     if shape.kind == "prefill":
-        batch = _batch_dtensors(api.input_specs(shape), mesh, device, cfg.vocab_size)
+        batch = _batch_local(api.input_specs(shape), mesh, device, cfg.vocab_size)
 
         def prefill(params, batch):
-            return ss.prefill(api, params, batch, cache_len=T, moe_groups=groups)
+            return ss.prefill(api, params, batch, layout, moe_groups=groups)
 
         return prefill, (params, batch), {"moe_groups": groups}
     long_ctx = B == 1
-    # the caches at their placements, each rank making its chunk (the
-    # encoder-decoder's cross K/V too, which its prefill would compute:
-    # their values do not change what a decode step runs)
-    caches = place_caches(cache_shapes(cfg, B, T), device, mesh, long_ctx)
-    token = _batch_dtensors({"token": ((B, 1), torch.int32)}, mesh, device,
-                            cfg.vocab_size)["token"]
+    # the rank's chunks of the caches (the encoder-decoder's cross K/V too,
+    # which its prefill would compute: their values do not change what a
+    # decode step runs)
+    caches = local_caches(cache_shapes(cfg, B, T), layout.partition(), device)
+    token = _batch_local({"token": ((B, 1), torch.int32)}, mesh, device,
+                         cfg.vocab_size)["token"]
     # the position: a 0-d int32 argument as the reference's; the step takes
     # its value, the last slot of the cache, as a Python int
     pos = torch.zeros((), dtype=torch.int32, device=device)
 
     def decode(params, caches, token, _pos):
-        return ss.decode_step(api, params, caches, token, T - 1, moe_groups=groups)
+        return ss.decode_step(api, params, caches, token, T - 1, layout, moe_groups=groups)
 
     return decode, (params, caches, token, pos), {"moe_groups": groups,
                                                   "long_ctx": long_ctx}
@@ -182,8 +177,7 @@ def cache_shapes(cfg, B: int, S: int) -> dict:
     dtype = compute_dtype(cfg)
     if cfg.encdec:
         return decoder_cache_shapes(cfg, B, S, dtype)
-    with sh.use_mesh(None):
-        return init_caches(cfg, B, S, dtype, torch.device("meta"))
+    return init_caches(cfg, B, S, dtype, torch.device("meta"))
 
 
 def _local_bytes(sharding, shape, dtype) -> int:
@@ -303,8 +297,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str | None = N
         import torch.distributed as dist
 
         world, rank = sh.use_mesh(mesh), dist.get_rank()
-    with world, op_analysis.dtensor_planning(), \
-            (FakeTensorMode(allow_non_fake_inputs=True) if fake else contextlib.nullcontext()):
+    with world, (FakeTensorMode(allow_non_fake_inputs=True) if fake
+                 else contextlib.nullcontext()):
         fn, args, extra = build_cell(arch, shape, mesh, device=dev, cfg=cfg, rank=rank,
                                      batch_specs=batch_specs)
         t1 = time.time()

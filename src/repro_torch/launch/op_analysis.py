@@ -20,8 +20,8 @@ on fake ones (`FakeTensorMode`, over `parallel.fake_world`), and counts
   - the bytes each op reads and writes (its tensor arguments and results;
     views move none);
   - each collective -- a call of `torch.distributed`'s (the sharded train
-    step's, the flash-decoding combine's) or a functional collective of
-    DTensor's redistributions -- under the reference's five names
+    step's and sharded serving's, through `parallel.collectives` and
+    `parallel.partition`) -- under the reference's five names
     (all-gather, all-reduce, reduce-scatter, all-to-all,
     collective-permute; `send` and the like are not used), with its
     per-device RESULT bytes, as the reference counts them
@@ -32,13 +32,8 @@ on fake ones (`FakeTensorMode`, over `parallel.fake_world`), and counts
     all-reduce twice (n - 1)/n of its tensor, over n ranks);
   - peak live bytes: every storage an op creates is live until it is
     freed (a `weakref.finalize` on the storage, fake ones too), on top of
-    the storages of the arguments the census is given.
-
-Operations on DTensors are counted at the level of their local shards
-(the census steps aside for the DTensor layer, so the local ops and the
-collectives of its redistributions reach it); the operations DTensor's
-sharding propagation runs on fake tensors of the global shape to learn an
-output's metadata are not the rank's work and are not counted.
+    the storages of the arguments the census is given; a tensor on the
+    meta device holds none.
 
 All numbers are PER RANK: the rank whose thread entered the census.
 """
@@ -110,16 +105,6 @@ _TRANSCENDENTALS = {
 }
 
 
-def _group_size(args, name_index: int | None = None, size_index: int | None = None):
-    """The ranks of a functional collective's group: given (its size
-    argument) or looked up by name."""
-    if size_index is not None:
-        return int(args[size_index])
-    from torch.distributed.distributed_c10d import _resolve_process_group
-
-    return _resolve_process_group(args[name_index]).size()
-
-
 def _flat(x) -> list:
     return [t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
 
@@ -143,43 +128,12 @@ def _reduce(t, n):
     return b, 2 * b * (n - 1) // n
 
 
-_FUNCTIONAL = {
-    # _c10d_functional::op(input, ...) -> result
-    "all_gather_into_tensor": ("all-gather",
-                               lambda a, o: _gather(o, _group_size(a, size_index=1))),
-    "all_gather_into_tensor_coalesced": (
-        "all-gather", lambda a, o: _gather(o, _group_size(a, size_index=1))),
-    "all_reduce": ("all-reduce", lambda a, o: _reduce(o, _group_size(a, name_index=2))),
-    "all_reduce_": ("all-reduce", lambda a, o: _reduce(o, _group_size(a, name_index=2))),
-    "all_reduce_coalesced": ("all-reduce",
-                             lambda a, o: _reduce(o, _group_size(a, name_index=2))),
-    "all_reduce_coalesced_": ("all-reduce",
-                              lambda a, o: _reduce(o, _group_size(a, name_index=2))),
-    "reduce_scatter_tensor": ("reduce-scatter",
-                              lambda a, o: _scatter(o, a[0], _group_size(a, size_index=2))),
-    "reduce_scatter_tensor_coalesced": (
-        "reduce-scatter", lambda a, o: _scatter(o, a[0], _group_size(a, size_index=2))),
-    "all_to_all_single": ("all-to-all",
-                          lambda a, o: _scatter(o, a[0], _group_size(a, name_index=3))),
-}
+# torch.distributed's collectives are counted where they are called (a
+# Python process group, the threaded one, reaches no c10d op): while a
+# census is entered anywhere, `_install` wraps them
 
-
-# ---------------------------------------------------------------------------
-# DTensor's planning -- its sharding propagation (which runs ops on fake
-# tensors of the global shape to learn an output's metadata), its search
-# for a redistribution and the index arithmetic of a strided shard -- works
-# on shapes, with small tensors of its own: not the rank's work. The census
-# mutes itself there (a thread's own count), and the planning runs outside
-# any `FakeTensorMode` of the caller's (its index tensors must hold values).
-# ---------------------------------------------------------------------------
-
-_MUTE = threading.local()
 _PATCH_LOCK = threading.Lock()
 _PATCH = {"users": 0, "orig": []}
-
-
-def _muted() -> bool:
-    return getattr(_MUTE, "depth", 0) > 0
 
 
 def _api_size(group) -> int:
@@ -226,7 +180,7 @@ def _counted(name: str, fn):
             out = fn(*args, **kwargs)
         finally:
             _ACTIVE.inside = not outer
-        if outer and stack and not _muted():
+        if outer and stack:
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
             stack[-1].collective(kind, *sizes(bound.arguments))
@@ -235,42 +189,11 @@ def _counted(name: str, fn):
     return counted
 
 
-def _planning_functions() -> list:
-    """[(owner, name)] of DTensor's planning entry points."""
-    from torch.distributed.tensor import _redistribute, _sharding_prop, placement_types
-
-    return [(_sharding_prop.ShardingPropagator, "_propagate_tensor_meta_non_cached"),
-            (_sharding_prop.ShardingPropagator, "propagate_op_sharding_non_cached"),
-            (_redistribute, "_gen_transform_infos_non_cached"),
-            (placement_types._StridedShard, "local_shard_size_and_offset")]
-
-
-def _planning(fn):
-    from torch._subclasses.fake_tensor import unset_fake_temporarily
-
-    def planned(*args, **kwargs):
-        _MUTE.depth = getattr(_MUTE, "depth", 0) + 1
-        try:
-            with unset_fake_temporarily():
-                return fn(*args, **kwargs)
-        finally:
-            _MUTE.depth -= 1
-
-    return planned
-
-
-def _install_mute() -> None:
+def _install() -> None:
     import torch.distributed as dist
 
     with _PATCH_LOCK:
         if _PATCH["users"] == 0:
-            for owner, name in _planning_functions():
-                raw = owner.__dict__[name]
-                _PATCH["orig"].append((owner, name, raw))
-                fn = raw.__func__ if isinstance(raw, staticmethod) else raw
-                wrapped = _planning(fn)
-                setattr(owner, name, staticmethod(wrapped) if isinstance(raw, staticmethod)
-                        else wrapped)
             for name in _API:
                 if hasattr(dist, name):
                     _PATCH["orig"].append((dist, name, getattr(dist, name)))
@@ -278,7 +201,7 @@ def _install_mute() -> None:
         _PATCH["users"] += 1
 
 
-def _remove_mute() -> None:
+def _remove() -> None:
     with _PATCH_LOCK:
         _PATCH["users"] -= 1
         if _PATCH["users"] == 0:
@@ -287,37 +210,11 @@ def _remove_mute() -> None:
             _PATCH["orig"].clear()
 
 
-@contextlib.contextmanager
-def dtensor_planning():
-    """Keep DTensor's planning (above) out of the census and of any
-    `FakeTensorMode` while inside: a dry run over fake tensors needs it
-    from the first DTensor op on, census or not."""
-    _install_mute()
-    try:
-        yield
-    finally:
-        _remove_mute()
-
-
-def _is_dtensor_type(t) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return issubclass(t, DTensor)
-
-
 def local_tensors(tree) -> list:
-    """The tensors of a tree, each DTensor as its local shard."""
-    from torch.distributed.tensor import DTensor
-
+    """The tensors of a tree (the rank's chunks)."""
     from ..core.pytree import flatten_with_paths
 
-    out = []
-    for _, x in flatten_with_paths(_nested(tree)):
-        if isinstance(x, DTensor):
-            out.append(x.to_local())
-        elif isinstance(x, torch.Tensor):
-            out.append(x)
-    return out
+    return [x for _, x in flatten_with_paths(_nested(tree)) if isinstance(x, torch.Tensor)]
 
 
 def _nested(tree):
@@ -378,11 +275,11 @@ class Census(TorchDispatchMode):
 
     # -- dispatch --------------------------------------------------------
     def __enter__(self):
-        _install_mute()
+        _install()
         try:
             out = super().__enter__()
         except BaseException:
-            _remove_mute()
+            _remove()
             raise
         _ACTIVE.stack = getattr(_ACTIVE, "stack", []) + [self]
         return out
@@ -392,15 +289,12 @@ class Census(TorchDispatchMode):
         try:
             return super().__exit__(*exc)
         finally:
-            _remove_mute()
+            _remove()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if any(_is_dtensor_type(t) for t in types):
-            return NotImplemented
         out = func(*args, **kwargs)
-        if not _muted():
-            self._count(func, args, kwargs, out)
+        self._count(func, args, kwargs, out)
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
@@ -411,18 +305,14 @@ class Census(TorchDispatchMode):
         entry = self.by_op[str(packet)]
         entry[0] += 1
         self.n_ops += 1
-        if ns in ("c10d", "_c10d_functional"):
-            # the c10d ops are counted where `torch.distributed` is called
-            # (`_API`: a Python process group, the threaded one, reaches no
-            # c10d op), the functional ones (DTensor's) here
-            if ns == "_c10d_functional" and packet.__name__ in _FUNCTIONAL:
-                kind, fn = _FUNCTIONAL[packet.__name__]
-                self.collective(kind, *fn(args, out))
+        if ns == "c10d":  # counted where `torch.distributed` is called (`_API`)
             return
         flops = _DOTS[packet](args) if packet in _DOTS else 0
         trans = _TRANSCENDENTALS[packet](args, out) if packet in _TRANSCENDENTALS else 0
-        ins = _flat((args, kwargs))
-        outs = _flat(out)
+        # a meta tensor (a shape the program reads, such as a cache
+        # tree's) holds no memory and moves no byte
+        ins = [t for t in _flat((args, kwargs)) if t.device.type != "meta"]
+        outs = [t for t in _flat(out) if t.device.type != "meta"]
         moved = 0
         if not func.is_view:
             moved = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)

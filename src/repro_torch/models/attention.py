@@ -11,6 +11,13 @@ only (B, H, Tq, Ck) per kv chunk.
 Caches are updated IN PLACE (`cache_insert`, `ring_prefill`,
 `linear_prefill` write into the tensors they are given and return the same
 dict); the reference returns new arrays. The values are the reference's.
+
+Sharded serving (a `parallel.partition.ServingPartition`) takes the
+reference's serving layout: a prefill's attention is context-parallel
+(`attend_rows`: the rank's query rows against k/v gathered whole), a
+rank's cache is its chunk of the positions (`cache_pspec`) and writes only
+the positions it holds, and a decode step combines the chunks by
+flash-decoding (`_combine_chunks`).
 """
 from __future__ import annotations
 
@@ -22,11 +29,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..parallel.partition import WHOLE
-from ..parallel.sharding import (constraint, dim_range, even_split, is_dtensor, seq_axis,
-                                 write_at)
-from .layers import init_normal
+from ..parallel.sharding import constraint, seq_axis
+from .layers import init_normal, linear
 
 NEG_INF = -1e30
+# the most query rows a model rank scores at once in a context-parallel
+# prefill: the reference's own share at its production prefill (32,768
+# tokens over 16 model ranks), so a longer share (fewer ranks, a longer
+# prompt) runs in pieces and never holds a wider f32 score tile
+Q_ROWS = 2048
 
 
 def attention_init(gen, d_model, n_heads, n_kv, d_head, bias=False,
@@ -48,42 +59,36 @@ def attention_init(gen, d_model, n_heads, n_kv, d_head, bias=False,
     return p
 
 
-def _proj(p, x, dtype):
-    y = x @ p["w"].to(dtype)
-    if "b" in p:
-        y = y + p["b"].to(dtype)
-    return y
-
-
 def _heads(y, d_head):
-    """(B, T, H*dh) -> (B, T, H, dh). On a DTensor whose fused dim is split
-    over mesh axes that do not divide the H heads (8 KV heads over 16
-    model ranks), DTensor cannot split the dim into heads: the fused dim
-    is first gathered over those axes (a redistribution by hand)."""
+    """(B, T, H*dh) -> (B, T, H, dh)."""
     B, T, F = y.shape
-    return even_split(y, 2, F // d_head).reshape(B, T, -1, d_head)
+    return y.reshape(B, T, F // d_head, d_head)
 
 
-def q_project(params, x, d_head, dtype=torch.bfloat16):
-    """The query alone (cross-attention reads its keys and values from the
-    encoder's cache)."""
-    return _heads(_proj(params["wq"], x, dtype), d_head)
+def project(p, x, n: int, dtype, part=WHOLE):
+    """x @ w (+ b) of a projection of n output columns, every column on
+    every model rank (the rank's columns gathered where the rules split
+    them)."""
+    y, kind, _ = part.linear(x, False, p, x.shape[-1], n, dtype)
+    return part.whole(y) if kind == "cols" else y
 
 
-def kv_project(params, x, d_head, dtype=torch.bfloat16):
-    """The keys and values alone (the encoder output's, for that cache)."""
-    return (_heads(_proj(params["wk"], x, dtype), d_head),
-            _heads(_proj(params["wv"], x, dtype), d_head))
+def whole_weights(p, dim: int, n: int, part=WHOLE) -> dict:
+    """A projection's weights with `dim` of w whole (gathered over "model"
+    where the rules split it); the bias as it is (the rules replicate
+    it)."""
+    out = {"w": part.fit(p["w"], dim, n)}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
 
 
-def qkv_project(params, x, d_head, dtype=torch.bfloat16):
-    return (q_project(params, x, d_head, dtype),
-            *kv_project(params, x, d_head, dtype))
-
-
-def out_project(params, attn_out, dtype=torch.bfloat16):
-    B, T = attn_out.shape[:2]
-    return _proj(params["wo"], attn_out.reshape(B, T, -1), dtype)
+def kv_project(params, x, n_kv_heads, d_head, dtype=torch.bfloat16, part=WHOLE):
+    """The keys and values alone (the encoder output's, for that cache):
+    every KV head."""
+    n = n_kv_heads * d_head
+    return (_heads(project(params["wk"], x, n, dtype, part), d_head),
+            _heads(project(params["wv"], x, n, dtype, part), d_head))
 
 
 def attend(params, hq, hkv, *, n_heads, n_kv_heads, d_head, dtype, part=WHOLE,
@@ -156,6 +161,70 @@ def _kv_heads(part, t, kind, k0: int, k1: int, dh: int):
     return t[..., k0 * dh:k1 * dh].reshape(B, T, k1 - k0, dh)
 
 
+def attend_rows(params, h, *, n_heads, n_kv_heads, d_head, dtype, part, sp, rope,
+                causal=True, window=None, chunk_q=512, chunk_k=1024, fill=None):
+    """Prefill's attention in the reference's context-parallel layout,
+    projected: each model rank computes the query rows of its share of the
+    stream (`sp`; every row when the stream is whole) against the keys and
+    values of the whole sequence, every head, with wq and wo whole, so the
+    output lands in the stream's layout with no sum over "model". The
+    keys and values are the rank's columns gathered; the queries run
+    Q_ROWS rows at a time, so no score tile is wider than (B, H, Q_ROWS,
+    chunk_k). `rope(q, k, q0)` positions the heads (q's rows from position
+    q0); `fill(k, v)` takes the keys and values for the cache."""
+    k, v = kv_project(params, h, n_kv_heads, d_head, dtype, part)
+    hq = part.own(h, sp)
+    q0 = part.r * hq.shape[1] if sp else 0
+    q, k = rope(_query(params, hq, n_heads * d_head, d_head, dtype, part), k, q0)
+    if fill is not None:
+        fill(k, v)
+    return _rows_out(params, q, k, v, q0=q0, part=part, dtype=dtype, causal=causal,
+                     window=window, chunk_q=chunk_q, chunk_k=chunk_k)
+
+
+def _query(params, hq, n: int, d_head: int, dtype, part):
+    """The heads of hq's rows, wq gathered whole."""
+    return _heads(linear(whole_weights(params["wq"], 1, n, part), hq, dtype), d_head)
+
+
+def _rows_out(params, q, k, v, *, q0, part, dtype, causal, window, chunk_q, chunk_k):
+    """q (B, Tq, H, dh), rows from position q0, against the whole k, v,
+    Q_ROWS rows at a time, projected by wo gathered whole -> (B, Tq, D)."""
+    B, Tq, H, dh = q.shape
+    o = torch.cat([flash_attention(q[:, c0:c0 + Q_ROWS], k, v, causal=causal,
+                                   window=window, q_offset=q0 + c0, chunk_q=chunk_q,
+                                   chunk_k=chunk_k)
+                   for c0 in range(0, Tq, Q_ROWS)], dim=1)
+    return linear(whole_weights(params["wo"], 0, H * dh, part), o.reshape(B, Tq, H * dh),
+                  dtype)
+
+
+def cross_attend(params, hc, cache, *, n_enc: int, n_heads, d_head, dtype, part=WHOLE,
+                 sp=False, chunk_q=512, chunk_k=1024):
+    """Cross-attention of hc (B, T, D) over the encoder's cached keys and
+    values (the rank's chunk of their n_enc positions). Prefill (T > 1)
+    with several model ranks: `attend_rows`' layout, the chunk gathered
+    whole; returns the projected output in the stream's layout and
+    "rows". Else -> (o (B, T, H*dh), "full"): the heads of every query,
+    against a chunk split over mesh axes by flash-decoding."""
+    H, dh = n_heads, d_head
+    ck, cv = cache["cross_k"], cache["cross_v"]
+    lo, hi, axes = part.span("cross_k", n_enc)
+    T = hc.shape[1]
+    if T > 1 and part.M > 1:
+        q = _query(params, part.own(hc, sp), H * dh, dh, dtype, part)
+        return _rows_out(params, q, part.join(ck, 1, axes), part.join(cv, 1, axes),
+                         q0=0, part=part, dtype=dtype, causal=False, window=None,
+                         chunk_q=chunk_q, chunk_k=chunk_k), "rows"
+    q = _heads(project(params["wq"], hc, H * dh, dtype, part), dh)
+    if axes:
+        ok = torch.ones(hi - lo, dtype=torch.bool, device=q.device)
+        o = _combine_chunks(q, ck, cv, ok, part, axes)
+    else:
+        o = flash_attention(q, ck, cv, causal=False, chunk_q=chunk_q, chunk_k=chunk_k)
+    return o.reshape(*o.shape[:2], -1), "full"
+
+
 def _chunk_scores_mask(q_pos, k_pos, causal, window, kv_len=None):
     """(Cq, Ck) additive mask from absolute positions."""
     dq = q_pos[:, None]
@@ -178,10 +247,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     f32; every query row is in each chunk's product, as in the reference
     (its `chunk_q` only sets the padding of Tq).
     """
-    if is_dtensor(q):
-        return _on_ranks(q, k, v, lambda q, k, v: flash_attention(
-            q, k, v, causal=causal, window=window, q_offset=q_offset,
-            chunk_q=chunk_q, chunk_k=chunk_k))
     B, Tq, H, dh = q.shape
     Tk_real, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -238,49 +303,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     return out.movedim(1, 2)[:, :Tq]  # (B, Tq, H, dh)
 
 
-def _on_ranks(q, k, v, fn):
-    """fn(q, k, v) -> (B, Tq, H, dh) of DTensors, run by each rank on its
-    own batch rows and query heads as plain tensors: attention is
-    independent across rows and heads, so no op of it needs DTensor's
-    rules (which cannot flatten a batch and a head dim sharded over two
-    mesh axes without strided shards). A redistribution by hand: q, k and
-    v keep their rows sharded over the batch axes and are gathered along
-    the sequence; the heads are split over 'model' when it divides them
-    into whole groups of the GQA grouping (else q is gathered too), and k
-    and v keep the KV heads this rank's query heads read."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = q.device_mesh
-    B, _, H, _ = q.shape
-    Hkv = k.shape[2]
-    G = H // Hkv
-    qp, kp, nb, heads = [], [], 1, None
-    for i, a in enumerate(mesh.mesh_dim_names):
-        n = mesh.size(i)
-        hl = H // n
-        if a in ("pod", "data") and B % (nb * n) == 0 and k.shape[0] == B:
-            qp.append(Shard(0))
-            kp.append(Shard(0))
-            nb *= n
-        elif a == "model" and H % n == 0 and (hl % G == 0 or G % hl == 0):
-            qp.append(Shard(2))
-            kp.append(Shard(2) if Hkv % n == 0 else Replicate())
-            heads = (i, hl) if Hkv % n else None
-        else:
-            qp.append(Replicate())
-            kp.append(Replicate())
-    ql = q.redistribute(mesh, qp).to_local()
-    kl = k.redistribute(mesh, kp).to_local()
-    vl = v.redistribute(mesh, kp).to_local()
-    if heads is not None:  # KV heads whole on every rank: keep this rank's
-        i, hl = heads
-        h0 = mesh.get_coordinate()[i] * hl
-        k0, k1 = h0 // G, (h0 + hl - 1) // G + 1
-        kl, vl = kl[:, :, k0:k1], vl[:, :, k0:k1]
-    out = fn(ql, kl, vl)
-    return DTensor.from_local(out, mesh, qp, run_check=False)
-
-
 # ---------------------------------------------------------------------------
 # KV caches
 # ---------------------------------------------------------------------------
@@ -315,125 +337,123 @@ def is_ring(cache) -> bool:
     return "pos" in cache
 
 
-def cache_insert(cache, k_new, v_new, index: int):
+def _span(cache, part):
+    """(lo, hi, axes) of a self-attention cache's positions on this rank:
+    a ring cache of W = its position tags' length, a linear one of the
+    partition's cache length (its own length with one rank)."""
+    n = cache["pos"].shape[0] if is_ring(cache) else part.cache_len or cache["k"].shape[1]
+    return part.span("k", n)
+
+
+def _put(local, lo: int, start: int, value) -> None:
+    """Positions [start, start + n) along dim 1 of `value` (a number: to
+    the end) into `local`, the chunk that holds positions lo.. of dim 1,
+    in place: the part of the range that falls in the chunk."""
+    hi = lo + local.shape[1]
+    if isinstance(value, (int, float)):
+        a = max(lo, start)
+        if a < hi:
+            local.narrow(1, a - lo, hi - a).fill_(value)
+        return
+    a, b = max(lo, start), min(hi, start + value.shape[1])
+    if a < b:
+        local.narrow(1, a - lo, b - a).copy_(value.narrow(1, a - start, b - a))
+
+
+def cache_insert(cache, k_new, v_new, index: int, part=WHOLE):
     """Write (B, 1, Hkv, dh) at absolute position `index` (a Python int),
-    in place (on a mesh, by the ranks whose chunk of S holds it:
-    `parallel.sharding.write_at`)."""
-    slot = index % cache["k"].shape[1] if is_ring(cache) else index
-    write_at(cache["k"], 1, slot, k_new)
-    write_at(cache["v"], 1, slot, v_new)
+    in place (by the rank whose chunk of the positions holds its slot)."""
+    slot = index % cache["pos"].shape[0] if is_ring(cache) else index
+    lo = _span(cache, part)[0]
+    _put(cache["k"], lo, slot, k_new)
+    _put(cache["v"], lo, slot, v_new)
     if is_ring(cache):
-        write_at(cache["pos"], 0, slot, torch.full((1,), index, dtype=torch.int32,
-                                                   device=cache["pos"].device))
+        cache["pos"].narrow(0, slot, 1).fill_(index)
     return cache
 
 
-def ring_prefill(cache, k, v, T):
+def prefill_cache(cache, k, v, T, part=WHOLE):
+    """A length-T prefill's keys and values (B, T, Hkv, dh), whole along
+    T, into the rank's chunk of the cache, in place."""
+    write = ring_prefill if is_ring(cache) else linear_prefill
+    return write(cache, k, v, T, part)
+
+
+def ring_prefill(cache, k, v, T, part=WHOLE):
     """Fill a ring cache from a length-T prefill, in place, preserving the
     slot = p % W invariant so later cache_insert() overwrites the oldest
     entry."""
-    W = cache["k"].shape[1]
+    W = cache["pos"].shape[0]
     if T < W:
-        linear_prefill(cache, k, v, T)
+        linear_prefill(cache, k, v, T, part)
         slots = torch.arange(W, dtype=torch.int32, device=k.device)
-        write_at(cache["pos"], 0, 0, torch.where(slots < T, slots, -1))
+        cache["pos"].copy_(torch.where(slots < T, slots, -1))
         return cache
     # last W positions T-W..T-1; position p -> slot p % W (static roll)
+    lo = _span(cache, part)[0]
     shift = (T - W) % W
-    cache["k"].copy_(_roll(k[:, -W:], shift))
-    cache["v"].copy_(_roll(v[:, -W:], shift))
+    _put(cache["k"], lo, 0, torch.roll(k[:, -W:], shift, dims=1))
+    _put(cache["v"], lo, 0, torch.roll(v[:, -W:], shift, dims=1))
     pos = T - W + torch.arange(W, dtype=torch.int32, device=k.device)
     cache["pos"].copy_(torch.roll(pos, shift))
     return cache
 
 
-def _roll(x, shift: int):
-    """torch.roll along dim 1; on a DTensor as two slices and a cat (the
-    same values: PyTorch 2.11's DTensor has no rule for roll)."""
-    if not is_dtensor(x):
-        return torch.roll(x, shift, dims=1)
-    if shift == 0:
-        return x
-    return torch.cat([x[:, -shift:], x[:, :-shift]], dim=1)
-
-
-def linear_prefill(cache, k, v, T):
+def linear_prefill(cache, k, v, T, part=WHOLE):
     """Positions 0..T-1 from the prefill, zeros past them, in place."""
+    lo = _span(cache, part)[0]
     for name, new in (("k", k), ("v", v)):
-        write_at(cache[name], 1, 0, new)
-        write_at(cache[name], 1, T, 0)
+        _put(cache[name], lo, 0, new)
+        _put(cache[name], lo, T, 0)
     return cache
 
 
-def decode_attend(cache, q, index: int, window=None):
+def decode_attend(cache, q, index: int, window=None, part=WHOLE):
     """q: (B, 1, H, dh) against the cache at decode position `index`.
 
     Full softmax over the cache S dim -- O(S) per token. Returns
-    (B, 1, H, dh).
-    """
-    if is_dtensor(cache["k"]):
-        return _decode_attend_sharded(cache, q, index, window)
+    (B, 1, H, dh). On a chunk of the positions split over mesh axes:
+    flash-decoding (`_combine_chunks`)."""
+    lo, hi, axes = _span(cache, part)
+    if is_ring(cache):
+        pos = cache["pos"][lo:hi] if axes else cache["pos"]  # (W,): the slots' tags
+        ok = (pos >= 0) & (pos <= index)
+    else:
+        pos = torch.arange(lo, hi, device=q.device) if axes else \
+            torch.arange(cache["k"].shape[1], device=q.device)
+        ok = pos <= index
+    if window is not None:
+        ok = ok & ((index - pos) < window)
+    if axes:
+        return _combine_chunks(q, cache["k"], cache["v"], ok, part, axes)
     B, _, H, dh = q.shape
     Hkv = cache["k"].shape[2]
     G = H // Hkv
     scale = 1.0 / math.sqrt(dh)
     qg = q.reshape(B, 1, Hkv, G, dh)
     s = torch.einsum("bqhgd,bshd->bhgqs", qg, cache["k"]).float() * scale
-    if is_ring(cache):
-        pos = cache["pos"]  # (W,)
-        ok = (pos >= 0) & (pos <= index)
-    else:
-        pos = torch.arange(cache["k"].shape[1], device=q.device)
-        ok = pos <= index
-    if window is not None:
-        ok = ok & ((index - pos) < window)
     s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqs,bshd->bhgqd", p.to(cache["v"].dtype), cache["v"])
     return out.movedim(3, 1).reshape(B, 1, H, dh)
 
 
-def _decode_attend_sharded(cache, q, index: int, window=None):
-    """`decode_attend` on a cache of DTensors whose S is split over mesh
-    axes (flash-decoding): each rank scores the query against its own
-    chunk of S for every head of its batch rows, then the softmax's max,
-    its sum and the weighted values are combined across the axes that
-    split S by all-reduces (max, sum, sum). A redistribution by hand: the
-    query is gathered to every head and laid out as the cache's rows."""
+def _combine_chunks(q, k, v, ok, part, axes):
+    """Flash-decoding: q (B, Tq, H, dh), every head, against the rank's
+    chunk k, v (B, S_chunk, Hkv, dh) of positions split over `axes`, `ok`
+    (S_chunk,) the positions it may read; each rank scores its chunk, then
+    the softmax's max, its sum and the weighted values are combined over
+    `axes` by all-reduces (max, sum, sum)."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    k = cache["k"]
-    mesh = k.device_mesh
-    H, dh = q.shape[2:]
+    B, Tq, H, dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(dh)
-    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in k.placements]
-    ql = q.redistribute(mesh, rows).to_local()
-    kl, vl = k.to_local(), cache["v"].to_local()
-    groups = [mesh.get_group(i) for i, p in enumerate(k.placements) if p.is_shard(1)]
-    lo, hi = dim_range(k, 1)
-    if is_ring(cache):
-        pos = cache["pos"]  # replicated by the cache rules
-        pos = (pos.to_local() if is_dtensor(pos) else pos)[lo:hi]
-        ok = (pos >= 0) & (pos <= index)
-    else:
-        pos = torch.arange(lo, hi, device=kl.device)
-        ok = pos <= index
-    if window is not None:
-        ok = ok & ((index - pos) < window)
-    qg = ql.reshape(ql.shape[0], 1, Hkv, G, dh)
-    s = torch.einsum("bqhgd,bshd->bhgqs", qg, kl).float() * scale
+    qg = q.reshape(B, Tq, Hkv, G, dh)
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k).float() * (1.0 / math.sqrt(dh))
     s = torch.where(ok, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    for g in groups:
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    m = part.reduce(s.amax(dim=-1, keepdim=True), axes, op=dist.ReduceOp.MAX)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgqs,bshd->bhgqd", p.to(vl.dtype), vl).float()
-    for g in groups:
-        dist.all_reduce(l, group=g)
-        dist.all_reduce(o, group=g)
-    out = (o / l).to(vl.dtype).movedim(3, 1).reshape(ql.shape[0], 1, H, dh)
-    return DTensor.from_local(out, mesh, rows, run_check=False)
+    l = part.reduce(p.sum(dim=-1, keepdim=True), axes)
+    o = part.reduce(torch.einsum("bhgqs,bshd->bhgqd", p.to(v.dtype), v).float(), axes)
+    return (o / l).to(v.dtype).movedim(3, 1).reshape(B, Tq, H, dh)

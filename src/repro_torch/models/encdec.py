@@ -17,14 +17,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.partition import WHOLE
-from ..parallel.sharding import (NamedSharding, cache_pspec, constraint, current_mesh,
-                                 live, use_mesh)
+from ..parallel.sharding import constraint
 from . import attention as attn
 from . import layers
 from .layers import ParamTree, init_normal
 from .transformer import (SubDesc, _norm_apply, _norm_init, apply_sublayer,
                           chunked_ce_loss, compute_dtype, embed_tokens, init_sublayer,
-                          init_sublayer_cache, place_caches, unembed_matrix)
+                          init_sublayer_cache, local_caches, logits_of)
 
 ENC_DESC = SubDesc(kind="attn", causal=False, ffn="dense")
 DEC_DESC = SubDesc(kind="attn", causal=True, ffn="dense", cross=True)
@@ -70,17 +69,16 @@ def encode(params, cfg, frames, moe_groups=1, *, part=WHOLE, top=None):
     return part.enter(_norm_apply(cfg, top["enc_norm"], x), sp)
 
 
-def _cross_kv(p_layer, cfg, enc_out):
-    return attn.kv_project(p_layer["s0"]["cross"], enc_out, cfg.head_dim,
-                           enc_out.dtype)
+def _cross_kv(p_layer, cfg, enc_out, part=WHOLE):
+    return attn.kv_project(p_layer["s0"]["cross"], enc_out, cfg.n_kv_heads, cfg.head_dim,
+                           enc_out.dtype, part)
 
 
 def decoder_cache_shapes(cfg, B, S, dtype) -> dict:
     """The decoder caches' tree as meta tensors (shapes only): what
     `init_decoder_caches` makes for B rows of S positions."""
     n = cfg.n_layers
-    with use_mesh(None):
-        base = init_sublayer_cache(cfg, DEC_DESC, B, S, dtype, "meta")
+    base = init_sublayer_cache(cfg, DEC_DESC, B, S, dtype, "meta")
     cache = {k: v.expand(n, *v.shape) for k, v in base.items()}
     cross = (n, B, cfg.encoder_positions, cfg.n_kv_heads, cfg.head_dim)
     cache.update({name: torch.empty(cross, dtype=dtype, device="meta")
@@ -88,28 +86,26 @@ def decoder_cache_shapes(cfg, B, S, dtype) -> dict:
     return {"blocks": {"s0": cache}}
 
 
-def init_decoder_caches(params, cfg, enc_out, B, S):
+def init_decoder_caches(params, cfg, enc_out, B, S, part=WHOLE):
     """Per layer, stacked (n_layers, ...) as the reference stacks them: the
-    self-attention's linear cache and the cross K/V of `enc_out`."""
+    self-attention's linear cache and the cross K/V of `enc_out`. With a
+    serving `parallel.partition.ServingPartition` (`enc_out` its rows of
+    the B, whole): the rank's chunks."""
     dtype = enc_out.dtype
-    mesh = current_mesh()
-    sharded = live(mesh)
-    if sharded:  # under a live mesh, each rank makes its chunk of the cache
+    kv = [_cross_kv(p, cfg, enc_out, part) for p in params["blocks"]]
+    if part.cache_len is not None:
         shapes = decoder_cache_shapes(cfg, B, S, dtype)
-        for name in ("cross_k", "cross_v"):
-            del shapes["blocks"]["s0"][name]
-        cache = place_caches(shapes, enc_out.device, mesh, B == 1)["blocks"]["s0"]
-    else:
-        n = len(params["blocks"])
-        base = init_sublayer_cache(cfg, DEC_DESC, B, S, dtype, enc_out.device)
-        cache = {k: v.expand(n, *v.shape).clone() for k, v in base.items()}
-    kv = [_cross_kv(p, cfg, enc_out) for p in params["blocks"]]
+        cross = {name: shapes["blocks"]["s0"].pop(name) for name in ("cross_k", "cross_v")}
+        cache = local_caches(shapes, part, enc_out.device)["blocks"]["s0"]
+        for i, name in enumerate(("cross_k", "cross_v")):
+            span = part.cache_chunk(f"blocks/s0/{name}", cross[name].shape)[2]
+            cache[name] = torch.stack([pair[i][:, span] for pair in kv])
+        return {"blocks": {"s0": cache}}
+    n = len(params["blocks"])
+    base = init_sublayer_cache(cfg, DEC_DESC, B, S, dtype, enc_out.device)
+    cache = {k: v.expand(n, *v.shape).clone() for k, v in base.items()}
     for i, name in enumerate(("cross_k", "cross_v")):
-        t = torch.stack([pair[i] for pair in kv])
-        if sharded:
-            spec = cache_pspec(f"blocks/s0/{name}", t.shape, B == 1, mesh)
-            t = t.redistribute(t.device_mesh, NamedSharding(mesh, spec).placements(t.ndim))
-        cache[name] = t
+        cache[name] = torch.stack([pair[i] for pair in kv])
     return {"blocks": {"s0": cache}}
 
 
@@ -157,21 +153,27 @@ def encdec_loss(params, cfg, batch, moe_groups=1, *, part=WHOLE):
                                                  device=ce.device)}
 
 
-def encdec_prefill(params, cfg, frames, tokens, cache_len=None, moe_groups=1):
+def encdec_prefill(params, cfg, frames, tokens, cache_len=None, moe_groups=1, part=WHOLE):
+    """-> (logits (B, V) of the last position, caches); with a serving
+    `parallel.partition.ServingPartition`, the rank's rows and chunks
+    (`transformer.prefill`)."""
     B, T = tokens.shape
-    enc_out = encode(params, cfg, frames, moe_groups)
-    caches = init_decoder_caches(params, cfg, enc_out, B, cache_len or T)
+    top = part.tops(params, TOP)
+    enc_out = encode(params, cfg, frames, moe_groups, part=part, top=top)
+    caches = init_decoder_caches(params, cfg, enc_out, B * part.nb, cache_len or T, part)
     hidden, caches = decoder_forward(params, cfg, tokens, mode="prefill",
-                                     caches=caches, moe_groups=moe_groups)
-    W = unembed_matrix(params, cfg, hidden.dtype)
-    return (hidden[:, -1] @ W).float(), caches
+                                     caches=caches, moe_groups=moe_groups, part=part,
+                                     top=top)
+    if part.seq(cfg, T):  # the last position is the last model rank's
+        hidden = part.whole(hidden[:, -1:], 1)
+    return logits_of(top, cfg, hidden, part), caches
 
 
-def encdec_decode_step(params, cfg, caches, token, pos: int, moe_groups=1):
+def encdec_decode_step(params, cfg, caches, token, pos: int, moe_groups=1, part=WHOLE):
     """token: (B, 1); pos: the absolute position (an int). Returns (logits
     (B, V), caches), the caches written in place."""
+    top = part.tops(params, TOP)
     hidden, caches = decoder_forward(params, cfg, token, mode="decode",
                                      caches=caches, pos_offset=int(pos),
-                                     moe_groups=moe_groups)
-    W = unembed_matrix(params, cfg, hidden.dtype)
-    return constraint((hidden[:, -1] @ W).float(), "batch", "model"), caches
+                                     moe_groups=moe_groups, part=part, top=top)
+    return logits_of(top, cfg, hidden, part), caches

@@ -27,7 +27,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.keys import KeyBuffer
 from ..parallel.partition import WHOLE
-from ..parallel.sharding import constraint, is_dtensor, seq_axis
+from ..parallel.sharding import constraint, seq_axis
 
 MASK32 = 0xFFFFFFFF
 
@@ -156,7 +156,7 @@ def mlp(params, x, act="swiglu", dtype=torch.bfloat16, *, part=WHOLE, d_ff=None,
     else:
         h = act_fn(act)(up)
     # context-parallel: hidden stays T-sharded over 'model'
-    h = constraint(h, "batch", seq_axis(h.shape[1], h), None)
+    h = constraint(h, "batch", seq_axis(h.shape[1]), None)
     return part.exit(*part.linear(h, kind == "cols", params["w_down"], Fd, D, dtype), sp=sp)
 
 
@@ -245,17 +245,6 @@ class _EmbedLookup(torch.autograd.Function):
         ctx.save_for_backward(tokens)
         ctx.w_dtype = w.dtype
         ctx.vocab = w.shape[0]
-        if is_dtensor(w):
-            # a vocab-sharded table: DTensor's embedding rule looks each
-            # token up where its row lies; the partial rows are summed at
-            # once (PyTorch 2.11 refuses a second lookup of the same
-            # table, a tied unembedding, while one is pending)
-            from torch.distributed.tensor import Replicate
-
-            y = F.embedding(tokens, w)
-            y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p
-                                               for p in y.placements])
-            return y.to(dtype)
         return w[tokens].to(dtype)
 
     @staticmethod

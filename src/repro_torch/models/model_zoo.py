@@ -8,8 +8,10 @@ parameters' device. `loss` returns a loss that carries its gradient to
 the parameters of a tree built with `init(gen, train=True)` (f32 masters;
 `train.make_train_step` differentiates it); with a
 `parallel.partition.Partition` as `part`, it is one rank's share of the
-sharded train step's loss. `moe_groups` is the number of MoE dispatch
-groups (capacity is per group, so it decides which tokens drop).
+sharded train step's loss, and `prefill` and `decode_step` given a
+`ServingPartition` are one rank's part of sharded serving
+(`serve.sharded`). `moe_groups` is the number of MoE dispatch groups
+(capacity is per group, so it decides which tokens drop).
 `prefill` and `decode_step` record no gradient, so a trained tree serves
 as it is.
 """
@@ -30,8 +32,8 @@ class ModelAPI:
     cfg: ArchConfig
     init: Callable                  # (torch.Generator, train=False) -> params
     loss: Callable                  # (params, batch, moe_groups, part) -> (loss, metrics)
-    prefill: Callable               # (params, batch, cache_len, moe_groups) -> (logits, caches)
-    decode_step: Callable           # (params, caches, token, pos, moe_groups) -> (logits, caches)
+    prefill: Callable               # (params, batch, cache_len, moe_groups, part) -> (logits, caches)
+    decode_step: Callable           # (params, caches, token, pos, moe_groups, part) -> (logits, caches)
     init_caches: Callable           # (B, S, device=None) -> caches
     input_specs: Callable           # (ShapeSpec) -> dict name -> (shape, dtype)
 
@@ -76,17 +78,17 @@ def _build_lm(cfg: ArchConfig) -> ModelAPI:
                                    moe_groups=moe_groups, part=part)
 
     @torch.no_grad()
-    def prefill(params, batch, cache_len=None, moe_groups=1):
+    def prefill(params, batch, cache_len=None, moe_groups=1, part=WHOLE):
         b = _on(params, batch)
         return transformer.prefill(params, cfg, b["tokens"], cache_len=cache_len,
                                    moe_groups=moe_groups,
-                                   patch_embeds=b.get("patch_embeds"))
+                                   patch_embeds=b.get("patch_embeds"), part=part)
 
     @torch.no_grad()
-    def decode_step(params, caches, token, pos, moe_groups=1):
+    def decode_step(params, caches, token, pos, moe_groups=1, part=WHOLE):
         token = torch.as_tensor(token, device=params_device(params))
         return transformer.decode_step(params, cfg, caches, token, pos,
-                                       moe_groups=moe_groups)
+                                       moe_groups=moe_groups, part=part)
 
     def init_caches(B, S, device=None):
         return transformer.init_caches(cfg, B, S, device=device)
@@ -107,16 +109,16 @@ def _build_encdec(cfg: ArchConfig) -> ModelAPI:
                                   moe_groups=moe_groups, part=part)
 
     @torch.no_grad()
-    def prefill(params, batch, cache_len=None, moe_groups=1):
+    def prefill(params, batch, cache_len=None, moe_groups=1, part=WHOLE):
         b = _on(params, batch)
         return encdec.encdec_prefill(params, cfg, b["frames"], b["tokens"],
-                                     cache_len=cache_len, moe_groups=moe_groups)
+                                     cache_len=cache_len, moe_groups=moe_groups, part=part)
 
     @torch.no_grad()
-    def decode_step(params, caches, token, pos, moe_groups=1):
+    def decode_step(params, caches, token, pos, moe_groups=1, part=WHOLE):
         token = torch.as_tensor(token, device=params_device(params))
         return encdec.encdec_decode_step(params, cfg, caches, token, pos,
-                                         moe_groups=moe_groups)
+                                         moe_groups=moe_groups, part=part)
 
     def init_caches(B, S, device=None):
         # the reference's own refusal: the decoder's cross K/V come from

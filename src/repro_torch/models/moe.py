@@ -37,7 +37,7 @@ import torch
 
 from ..core.keys import KeyBuffer
 from ..parallel.partition import WHOLE
-from ..parallel.sharding import batch_mean, constraint, is_dtensor
+from ..parallel.sharding import batch_mean, constraint
 from . import layers
 from .layers import MASK32, init_normal
 
@@ -184,14 +184,15 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
               dtype=torch.bfloat16, part=WHOLE, d_ff=None, sp=False):
     """x: (B, T, D) -> (B, T, D), plus aux dict (load-balance loss).
 
-    On a DTensor `x` (sharded serving) the routing, the dispatch into the
-    capacity buffer and the combine run on each rank's own groups as plain
-    tensors (`_rank_tokens`), and the expert FFN on DTensors against the
-    experts' placements. With a `parallel.partition.Partition` of several
-    model ranks (x the whole sequence, `d_ff` the whole width): every rank
-    routes every token of its rows and runs its own experts (the pairs of
-    the others' drop here); their partial sums and the shared expert's
-    share in the stream's layout (`sp`)."""
+    With a `parallel.partition.Partition` of several model ranks (x the
+    whole sequence of its rows, `d_ff` the whole width): every rank routes
+    every token of its rows and runs its own experts (the pairs of the
+    others' drop here); their partial sums and the shared expert's share
+    in the stream's layout (`sp`). Where the expert weights hold the
+    rank's columns of `d_ff` over "data" (the serving rules' decode
+    layout, the reference's: no weights gathered on the latency path),
+    every group of the batch ranks' rows runs against those columns,
+    their partial sums added over "data", then the rank keeps its rows."""
     B, T, D = x.shape
     N = B * T
     G = groups or 1
@@ -201,17 +202,18 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
     capacity = capacity_of(n, k, n_experts, capacity_factor)
     # T gathered across 'model' once (the dispatch groups are data-sharded)
     x = constraint(x, "batch", None, None)
-    if is_dtensor(x):
-        return _moe_sharded(params, x, G, capacity, n_experts=n_experts, k=k,
-                            router=router, token_ids=token_ids, act=act, dtype=dtype)
+    El, Fl = params["w_up"]["w"].shape[0], params["w_up"]["w"].shape[-1]
+    split_f = d_ff is not None and Fl != d_ff
     xf = x.reshape(N, D)
     idx, gate, aux = _route(params, xf, token_ids, n_experts=n_experts, k=k,
                             router=router, dtype=dtype)
+    if split_f:  # every batch rank's rows, routed by their own ranks
+        xf, idx, gate = (part.all_rows(t) for t in (xf, idx, gate))
+        G *= part.nb
     xg = xf.reshape(G, n, D)
     idx = idx.reshape(G, n, k)
     gate = gate.reshape(G, n, k)
     slot = _group_dispatch(idx, n_experts, capacity)
-    El = params["w_up"]["w"].shape[0]
     if El != n_experts:  # the rank's experts
         local = idx - part.r * El
         mine = (local >= 0) & (local < El)
@@ -219,6 +221,8 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
     buf = _dispatch(xg, idx, slot, El, capacity)                      # (G, E, C, D)
     out_buf = _experts(params, buf, T, act, dtype)
     y = constraint(_combine(out_buf, idx, slot, gate, capacity), "data", None, None)
+    if split_f:  # the sum over the columns of d_ff, then the rank's rows
+        y = part.my_rows(part.reduce(y.reshape(-1, D), ("data",)))
     kind = "partial" if El != n_experts else "full"
     if "shared" not in params:
         return part.exit(y.reshape(B, T, D), kind, sp=sp), aux
@@ -227,106 +231,3 @@ def moe_apply(params, x, *, n_experts, k, capacity_factor=1.25, groups=None,
     shared = layers.mlp(params["shared"], x, act=act, dtype=dtype, part=part, d_ff=d_ff,
                         sp=sp)
     return part.exit(y.reshape(B, T, D), kind, sp=sp) + shared, aux
-
-
-def _rank_tokens(x, G: int):
-    """The placements under which each rank holds whole MoE groups of the
-    DTensor `x` (B, ...): dim 0 over the batch axes when they split both B
-    and the G groups, else replicated (every rank routes every group)."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh = x.device_mesh
-    names = mesh.mesh_dim_names
-    n_batch = math.prod(mesh.size(i) for i, a in enumerate(names) if a in ("pod", "data"))
-    split = x.shape[0] % n_batch == 0 and G % n_batch == 0
-    return [Shard(0) if split and a in ("pod", "data") else Replicate() for a in names], \
-        (n_batch if split else 1)
-
-
-def _experts_on_ranks(params, buf, places, T, act, dtype):
-    """The expert FFN of the capacity buffer `buf` (G, E, C, D; a DTensor
-    at `places`: each rank's groups, every expert) in the reference's
-    serving layout, computed by each rank on plain tensors: the experts
-    over 'model'; at prefill the rank's groups against expert weights
-    gathered over the data axes (the F dim the serving rules split), at
-    decode (T == 1) every group against the rank's F columns and rows,
-    whose partial sums an all-reduce over 'data' adds up. A redistribution
-    by hand (PyTorch 2.11's DTensor cannot run the einsums of this layout:
-    it views a non-contiguous local chunk). -> the rank's groups, every
-    expert: (G at `places`, E, C, D) local."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = buf.device_mesh
-    E = buf.shape[1]
-    F = params["w_up"]["w"].shape[-1]
-    decode = T == 1
-    on_buf, w_in, w_out, partial = [], [], [], []
-    for i, a in enumerate(mesh.mesh_dim_names):
-        n = mesh.size(i)
-        if a == "model" and E % n == 0:
-            on_buf.append(Shard(1)), w_in.append(Shard(0)), w_out.append(Shard(0))
-        elif a == "data" and decode and F % n == 0:
-            on_buf.append(Replicate()), w_in.append(Shard(2)), w_out.append(Shard(1))
-            partial.append(i)
-        else:
-            on_buf.append(Replicate() if decode else places[i])
-            w_in.append(Replicate()), w_out.append(Replicate())
-
-    def local(name, places_w):
-        w = params[name]["w"]
-        return (w.redistribute(mesh, places_w).to_local() if is_dtensor(w) else w).to(dtype)
-
-    bl = buf.redistribute(mesh, on_buf).to_local()
-    up = torch.einsum("gecd,edf->gecf", bl, local("w_up", w_in))
-    if act == "swiglu":
-        h = layers._silu(torch.einsum("gecd,edf->gecf", bl, local("w_gate", w_in))) * up
-    else:
-        h = layers._gelu(up)
-    out = torch.einsum("gecf,efd->gecd", h, local("w_down", w_out))
-    for i in partial:
-        dist.all_reduce(out, group=mesh.get_group(i))
-    out = DTensor.from_local(out, mesh, on_buf, run_check=False)
-    return out.redistribute(mesh, places).to_local()
-
-
-def _moe_sharded(params, x, G, capacity, *, n_experts, k, router, token_ids, act,
-                 dtype):
-    """`moe_apply` of a DTensor `x` (B, T, D): a redistribution by hand to
-    each rank's groups (`_rank_tokens`), the routing, dispatch and combine
-    of those groups on plain local tensors (the learned router's weight is
-    replicated by the serving rules; its balance means go through
-    `batch_mean`), the expert FFN on each rank's experts
-    (`_experts_on_ranks`)."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    B, T, D = x.shape
-    mesh = x.device_mesh
-    places, parts = _rank_tokens(x, G)
-    xl = x.redistribute(mesh, places).to_local()                       # (B/parts, T, D)
-    tl = None if token_ids is None else \
-        token_ids.redistribute(mesh, places).to_local() if is_dtensor(token_ids) else \
-        token_ids
-    def whole(t):  # replicated by the serving rules: no communication
-        return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local() \
-            if is_dtensor(t) else t
-
-    rp = {"router": {"w": whole(params["router"]["w"])}} if router == "learned" else \
-        {name: whole(params[name]) for name in ("const_hash_hi", "const_hash_lo")}
-    Gl = G // parts
-    nl = xl.shape[0] * T // Gl
-    xf = xl.reshape(-1, D)
-    idx, gate, aux = _route(rp, xf, tl, n_experts=n_experts, k=k, router=router,
-                            dtype=dtype)
-    idx = idx.reshape(Gl, nl, k)
-    gate = gate.reshape(Gl, nl, k)
-    slot = _group_dispatch(idx, n_experts, capacity)
-    buf = _dispatch(xf.reshape(Gl, nl, D), idx, slot, n_experts, capacity)
-    out_buf = _experts_on_ranks(params, DTensor.from_local(buf, mesh, places,
-                                                           run_check=False),
-                                places, T, act, dtype)
-    y = _combine(out_buf, idx, slot, gate, capacity).reshape(xl.shape)
-    y = DTensor.from_local(y, mesh, places, run_check=False)
-    if "shared" in params:
-        y = y + layers.mlp(params["shared"], x, act=act, dtype=dtype)
-    return y, aux

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.partition import WHOLE
-from ..parallel.sharding import constraint, is_dtensor
+from ..parallel.sharding import constraint
 from . import layers
 from .layers import init_normal
 
@@ -136,40 +136,6 @@ def _mamba_scan(dt, xc, Bs, Cs, A, ssm_state, chunk):
     return torch.cat(ys, dim=1)[:, :T], h
 
 
-def _mamba_on_ranks(dt, xc, Bs, Cs, A, ssm_state, chunk):
-    """`_mamba_scan` of DTensors, run by each rank on its own batch rows
-    and channels as plain tensors (the scan is independent across both; a
-    redistribution by hand: rows over the batch axes, channels over
-    'model' where it divides them, B and C gathered over 'model')."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = dt.device_mesh
-    B, _, DI = dt.shape
-    chan, bc, a, st, nb = [], [], [], [], 1
-    for i, name in enumerate(mesh.mesh_dim_names):
-        n = mesh.size(i)
-        if name in ("pod", "data") and B % (nb * n) == 0:
-            chan.append(Shard(0)), bc.append(Shard(0)), a.append(Replicate())
-            st.append(Shard(0))
-            nb *= n
-        elif name == "model" and DI % n == 0:
-            chan.append(Shard(2)), bc.append(Replicate()), a.append(Shard(0))
-            st.append(Shard(1))
-        else:
-            for p in (chan, bc, a, st):
-                p.append(Replicate())
-
-    def local(t, places):
-        if not is_dtensor(t):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return t.redistribute(mesh, places).to_local()
-
-    y, hT = _mamba_scan(local(dt, chan), local(xc, chan), local(Bs, bc), local(Cs, bc),
-                        local(A, a), local(ssm_state, st), chunk)
-    return (DTensor.from_local(y, mesh, chan, run_check=False),
-            DTensor.from_local(hT, mesh, st, run_check=False))
-
-
 def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
                   ssm_state=None, dtype=torch.bfloat16, return_state=False, part=WHOLE,
                   d_inner=None, sp=False):
@@ -183,11 +149,18 @@ def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
     conv = params["conv"]["w"]
     DIl, d_conv = conv.shape
     DI = d_inner or DIl
-    w = part.fit(params["in_proj"]["w"], 1, 2 * DI)
-    if DIl != DI:  # the rank's columns of x and of z
-        c0 = part.r * DIl
-        w = torch.cat([w[:, c0:c0 + DIl], w[:, DI + c0:DI + c0 + DIl]], dim=1)
-    xz = layers.linear({"w": w}, x, dtype)
+    w = params["in_proj"]["w"]
+    c0 = part.r * DIl
+    if w.shape[1] != 2 * DI and B * T < D:
+        # the rank's columns of [x | z] are not its channels: gather the
+        # product (fewer elements than the weight: a decode step's few rows)
+        xz = part.whole(layers.linear({"w": w}, x, dtype))
+        xz = torch.cat([xz[..., c0:c0 + DIl], xz[..., DI + c0:DI + c0 + DIl]], dim=-1)
+    else:  # the weight, gathered, regathered into the rank's channels
+        w = part.fit(w, 1, 2 * DI)
+        if DIl != DI:
+            w = torch.cat([w[:, c0:c0 + DIl], w[:, DI + c0:DI + c0 + DIl]], dim=1)
+        xz = layers.linear({"w": w}, x, dtype)
     xin, z = xz.chunk(2, dim=-1)
     xin = constraint(xin, "batch", None, "model")
 
@@ -216,8 +189,7 @@ def mamba_forward(params, x, *, d_state=16, chunk=64, conv_state=None,
 
     if ssm_state is None:
         ssm_state = torch.zeros(B, DIl, d_state, dtype=torch.float32, device=x.device)
-    scan = _mamba_on_ranks if is_dtensor(dt) else _mamba_scan
-    y, hT = scan(dt, xc, Bs, Cs, A, ssm_state, chunk)
+    y, hT = _mamba_scan(dt, xc, Bs, Cs, A, ssm_state, chunk)
     y = y + part.fit(params["D"], 0, DIl) * xc.float()
     y = y.to(dtype) * layers._silu(z)
     out = part.exit(*part.linear(y, DIl != DI, params["out_proj"], DI, D, dtype), sp=sp)
@@ -318,37 +290,6 @@ def _wkv(r, k, v, log_w, u, state, chunk):
     return y[:, :T], new_state
 
 
-def _wkv_on_ranks(r, k, v, log_w, u, state, chunk):
-    """`_wkv` of DTensors, run by each rank on its own batch rows and heads
-    as plain tensors (the recurrence is independent across both; a
-    redistribution by hand to rows over the batch axes and heads over
-    'model' where they divide, the rest gathered)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = r.device_mesh
-    B, _, H, _ = r.shape
-    seq, heads, st, nb = [], [], [], 1
-    for i, a in enumerate(mesh.mesh_dim_names):
-        n = mesh.size(i)
-        if a in ("pod", "data") and B % (nb * n) == 0:
-            seq.append(Shard(0)), heads.append(Replicate()), st.append(Shard(0))
-            nb *= n
-        elif a == "model" and H % n == 0:
-            seq.append(Shard(2)), heads.append(Shard(0)), st.append(Shard(1))
-        else:
-            seq.append(Replicate()), heads.append(Replicate()), st.append(Replicate())
-
-    def local(t, places):
-        if not is_dtensor(t):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return t.redistribute(mesh, places).to_local()
-
-    y, new = _wkv(*(local(t, seq) for t in (r, k, v, log_w)), local(u, heads),
-                  local(state, st), chunk)
-    return (DTensor.from_local(y, mesh, seq, run_check=False),
-            DTensor.from_local(new, mesh, st, run_check=False))
-
-
 def rwkv6_time_mix(params, x, n_heads, *, chunk=16, state=None, shift_state=None,
                    dtype=torch.bfloat16, return_state=False, part=WHOLE, sp=False):
     """x: (B, T, D) -> (B, T, D). state: (B, H, dk, dv) f32 carried. With a
@@ -385,8 +326,7 @@ def rwkv6_time_mix(params, x, n_heads, *, chunk=16, state=None, shift_state=None
 
     if state is None:
         state = torch.zeros(B, H, dk, dk, dtype=torch.float32, device=x.device)
-    wkv = _wkv_on_ranks if is_dtensor(r) else _wkv
-    y, new_state = wkv(r, k, v, log_w, u, state, chunk)
+    y, new_state = _wkv(r, k, v, log_w, u, state, chunk)
     y = y.reshape(B, T, Dl)
 
     y = y.to(dtype) * g
@@ -411,23 +351,30 @@ def rwkv6_channel_mix(params, x, *, shift_state=None, dtype=torch.bfloat16,
     """With a `parallel.partition.Partition` of several model ranks (x the
     whole sequence, `d_ff` the whole width): the rank's FFN columns or, with
     every weight whole (the rules split none of them), every column on the
-    rank's own positions; the result in the stream's layout (`sp`)."""
+    rank's own positions -- or, where the stream is whole, the rank's share
+    of the columns; the result in the stream's layout (`sp`)."""
     D = x.shape[-1]
     Fd = d_ff or params["ffn_k"]["w"].shape[1]
     xk, last = _token_shift(x, params["mix"][0].to(dtype), shift_state)
     xr, _ = _token_shift(x, params["mix"][1].to(dtype), shift_state)
-    whole = (params["ffn_k"]["w"].shape == (D, Fd) and params["ffn_v"]["w"].shape == (Fd, D)
+    pk, pv = params["ffn_k"], params["ffn_v"]
+    whole = (pk["w"].shape == (D, Fd) and pv["w"].shape == (Fd, D)
              and params["ffn_r"]["w"].shape == (D, D))
-    if whole:
+    # with every weight whole and the stream whole on every model rank (a
+    # decode step), each rank takes its share of the FFN's columns
+    split = whole and not sp and part.M > 1 and Fd % part.M == 0
+    if split:
+        pk, pv = {"w": part.mine(pk["w"], 1)}, {"w": part.mine(pv["w"], 0)}
+    elif whole:
         xk, xr = part.own(xk, sp), part.own(xr, sp)
-    k, kk, _ = part.linear(xk, False, params["ffn_k"], D, Fd, dtype)
+    k, kk, _ = part.linear(xk, False, pk, D, Fd, dtype)
     k = constraint(torch.relu(k).square(), "batch", None, "model")
-    kv, kind, _ = part.linear(k, kk == "cols", params["ffn_v"], Fd, D, dtype)
+    kv, kind, _ = part.linear(k, kk == "cols", pv, Fd, D, dtype)
     r, rk, _ = part.linear(xr, False, params["ffn_r"], D, D, dtype)
     if rk == "partial":
         r = part.sum(r)
     out = torch.sigmoid(part.fit(r, -1, kv.shape[-1])) * kv
-    if not whole:
+    if split or not whole:
         out = part.exit(out, kind, sp=sp)
     if return_state:
         return out, last

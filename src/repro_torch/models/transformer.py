@@ -31,8 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import resolve_device
 from ..core.pytree import map_with_paths
 from ..parallel.partition import WHOLE
-from ..parallel.sharding import (NamedSharding, cache_pspec, constraint, current_mesh,
-                                 dtensor, live, seq_axis, use_mesh)
+from ..parallel.sharding import constraint, seq_axis
 from . import attention as attn
 from . import layers, ssm
 from . import moe as moe_mod
@@ -185,8 +184,9 @@ def embed_tokens(params, cfg, tokens, dtype, *, part=WHOLE, sp=False, patch=None
     if cfg.hashed_embedding:
         e = params["embed"]
         nb = cfg.vocab_size // cfg.hashed_vocab_factor
-        table = {**e, "hashed": {"w": part.fit(e["hashed"]["w"], 0, nb)}} \
-            if part.M > 1 else e
+        table = {"mix": e["mix"], "const_key_hi": e["const_key_hi"],
+                 "const_key_lo": e["const_key_lo"],
+                 "hashed": {"w": part.fit(e["hashed"]["w"], 0, nb)}} if part.M > 1 else e
         x, kind = layers.hashed_embed(table, tokens, nb, cfg.hashed_n_hashes, dtype), "full"
     else:
         w = params["embed"]["tok"]["w"]
@@ -262,9 +262,11 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
     'train' pass of whisper's decoder cross-attends to (serving reads its
     K/V from the cache). Returns (x, aux): aux is the MoE balance loss of
     an MoE FFN, else None. With a `parallel.partition.Partition` (the
-    sharded train step's), x is the rank's part of the stream (`sp`: its
-    share of the sequence), `p` its gathered weights, and each sublayer
-    computes the rank's share (`parallel.partition`)."""
+    sharded train step's, or sharded serving's), x is the rank's part of
+    the stream (`sp`: its share of the sequence), `p` its gathered weights,
+    `cache` its chunk, and each sublayer computes the rank's share
+    (`parallel.partition`): a prefill's attention its query rows, a decode
+    step's every head against its chunk of the cache's positions."""
     D, H, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     aux = None
 
@@ -277,29 +279,33 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
         positions = _positions_for(cfg, T, pos_offset,
                                    cfg.vision_prefix if mode != "decode" else 0, x.device)
 
-        def rope(q, k):
-            q = _apply_rope_q_or_k(cfg, q, positions, desc.theta)
+        def rope(q, k, q0=0):  # q's rows from position q0 of the sequence
+            pq = positions if q.shape[1] == T else positions[..., q0:q0 + q.shape[1]]
+            q = _apply_rope_q_or_k(cfg, q, pq, desc.theta)
             k = _apply_rope_q_or_k(cfg, k, positions, desc.theta)
             return _qk_norm(cfg, q, k)
 
         if mode == "decode":
-            q, k, v = attn.qkv_project(p["attn"], h, dh, dtype)
+            q = attn._heads(attn.project(p["attn"]["wq"], h, H * dh, dtype, part), dh)
+            k, v = attn.kv_project(p["attn"], h, cfg.n_kv_heads, dh, dtype, part)
             q, k = rope(q, k)
-            attn.cache_insert(cache, k, v, pos_offset)
-            o = attn.decode_attend(cache, q, pos_offset, window=desc.window)
+            attn.cache_insert(cache, k, v, pos_offset, part)
+            o = attn.decode_attend(cache, q, pos_offset, window=desc.window, part=part)
             o, kind = o.reshape(*o.shape[:2], -1), "full"
         else:
             fill = None
             if mode == "prefill" and cache is not None:
                 def fill(k, v):
-                    write = attn.ring_prefill if attn.is_ring(cache) else attn.linear_prefill
-                    write(cache, k, v, T)
-            o, kind = attn.attend(p["attn"], h, h, n_heads=H, n_kv_heads=cfg.n_kv_heads,
-                                  d_head=dh, dtype=dtype, part=part, rope=rope,
-                                  causal=desc.causal, window=desc.window,
-                                  chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
-                                  fill=fill)
-        x = x + constraint(out(o, kind, p["attn"]["wo"]), "batch", None, None)
+                    attn.prefill_cache(cache, k, v, T, part)
+            kw = dict(n_heads=H, n_kv_heads=cfg.n_kv_heads, d_head=dh, dtype=dtype,
+                      part=part, rope=rope, causal=desc.causal, window=desc.window,
+                      chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k, fill=fill)
+            if mode == "prefill" and part.M > 1:  # projected, in the stream's layout
+                o, kind = attn.attend_rows(p["attn"], h, sp=sp, **kw), "rows"
+            else:
+                o, kind = attn.attend(p["attn"], h, h, **kw)
+        x = x + constraint(o if kind == "rows" else out(o, kind, p["attn"]["wo"]), "batch",
+                           None, None)
         if desc.cross:  # whisper's decoder: K/V of the encoder output
             hc = part.enter(_norm_apply(cfg, p["cross_ln"], x), sp)
             if enc is not None:
@@ -308,12 +314,12 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
                                        part=part, causal=False, chunk_q=cfg.attn_chunk_q,
                                        chunk_k=cfg.attn_chunk_k)
             else:  # cached once a request
-                qc = attn.q_project(p["cross"], hc, dh, dtype)
-                oc = attn.flash_attention(qc, cache["cross_k"], cache["cross_v"],
-                                          causal=False, chunk_q=cfg.attn_chunk_q,
-                                          chunk_k=cfg.attn_chunk_k)
-                oc, kind = oc.reshape(*oc.shape[:2], -1), "full"
-            x = x + out(oc, kind, p["cross"]["wo"])
+                oc, kind = attn.cross_attend(p["cross"], hc, cache,
+                                             n_enc=cfg.encoder_positions, n_heads=H,
+                                             d_head=dh, dtype=dtype, part=part, sp=sp,
+                                             chunk_q=cfg.attn_chunk_q,
+                                             chunk_k=cfg.attn_chunk_k)
+            x = x + (oc if kind == "rows" else out(oc, kind, p["cross"]["wo"]))
     elif desc.kind == "mamba":
         c = cache if cache is not None else {}
         o, (conv_s, ssm_s) = ssm.mamba_forward(
@@ -351,7 +357,7 @@ def apply_sublayer(p, x, desc: SubDesc, cfg, *, mode, pos_offset=0, cache=None,
             d_ff=cfg.d_ff, sp=sp)
         aux = moe_aux["balance_loss"]
         x = x + o
-    seq_sh = seq_axis(x.shape[1], x) if cfg.seq_shard_activations else None
+    seq_sh = seq_axis(x.shape[1]) if cfg.seq_shard_activations else None
     return constraint(x, "batch", seq_sh, None), aux
 
 
@@ -383,17 +389,16 @@ def init_sublayer_cache(cfg, desc: SubDesc, B, S, dtype=torch.bfloat16, device=N
     raise ValueError(desc.kind)
 
 
-def init_caches(cfg, B, S, dtype=None, device=None):
+def init_caches(cfg, B, S, dtype=None, device=None, part=WHOLE):
     """Cache tree in the reference's layout: leaves under 'blocks' stacked
-    (n_blocks, ...), 'tail' leaves unstacked. Under a mesh whose process
-    group is live, each leaf is a DTensor at its cache placement
-    (`parallel.sharding.cache_shardings`, long-context when B = 1), of
-    which each rank makes only its own chunk."""
+    (n_blocks, ...), 'tail' leaves unstacked. With a serving
+    `parallel.partition.ServingPartition`, each leaf is the rank's chunk
+    of the B rows' caches (`local_caches`)."""
     dtype = dtype or compute_dtype(cfg)
     device = resolve_device(device)
-    mesh = current_mesh()
-    if live(mesh):
-        return _sharded_caches(cfg, B, S, dtype, device, mesh)
+    if part.cache_len is not None:
+        return local_caches(init_caches(cfg, B, S, dtype, torch.device("meta")), part,
+                            device)
     n_blocks, subs, tail = block_spec(cfg)
 
     def stacked(desc):
@@ -407,21 +412,14 @@ def init_caches(cfg, B, S, dtype=None, device=None):
     return caches
 
 
-def _sharded_caches(cfg, B, S, dtype, device, mesh):
-    with use_mesh(None):
-        shapes = init_caches(cfg, B, S, dtype, torch.device("meta"))
-    return place_caches(shapes, device, mesh, B == 1)
-
-
-def place_caches(shapes, device, mesh, long_ctx: bool):
-    """A cache tree of meta tensors (shapes) -> DTensors at their cache
-    placements on `device`, each rank making its own chunk: zeros, and -1
-    for a ring cache's position tags."""
+def local_caches(shapes, part, device):
+    """A cache tree of meta tensors (the whole caches' shapes) -> the
+    rank's chunks at their cache placements (`part.cache_chunk`) on
+    `device`: zeros, and -1 for a ring cache's position tags."""
     def leaf(path, t):
-        s = NamedSharding(mesh, cache_pspec(path, t.shape, long_ctx, mesh))
-        local = torch.full(s.local_shape(t.shape), -1 if path.endswith("pos") else 0,
-                           dtype=t.dtype, device=device)
-        return dtensor(local, s, t.shape)
+        shape = [s.stop - s.start for s in part.cache_chunk(path, t.shape)]
+        return torch.full(shape, -1 if path.endswith("pos") else 0, dtype=t.dtype,
+                          device=device)
 
     return map_with_paths(leaf, shapes)
 
@@ -455,7 +453,7 @@ def forward(params, cfg, tokens, *, mode="train", pos_offset=0, caches=None,
     top = top if top is not None else part.tops(params, TOP)
     sp = part.seq(cfg, tokens.shape[1])
     x = embed_tokens(top, cfg, tokens, dtype, part=part, sp=sp, patch=patch_embeds)
-    x = constraint(x, "batch", seq_axis(tokens.shape[1], x) if cfg.seq_shard_activations
+    x = constraint(x, "batch", seq_axis(tokens.shape[1]) if cfg.seq_shard_activations
                    else None, None)
     kw = dict(mode=mode, pos_offset=pos_offset, moe_groups=moe_groups, dtype=dtype,
               token_ids=tokens if cfg.moe and cfg.router == "hash" else None, part=part,
@@ -575,22 +573,35 @@ def lm_loss(params, cfg, batch, moe_groups=1, balance_coef=0.01, *, part=WHOLE):
 # serving entry points
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg, tokens, cache_len=None, moe_groups=1, patch_embeds=None):
+def logits_of(top, cfg, hidden, part=WHOLE):
+    """(B, V) f32 logits of hidden's last position (B, T or 1, D), every
+    column on every model rank (with the vocabulary split over "model",
+    the ranks' columns gathered)."""
+    return part.fit((hidden[:, -1:] @ unembed_matrix(top, cfg, hidden.dtype)).float(), -1,
+                    cfg.vocab_size)[:, 0]
+
+
+def prefill(params, cfg, tokens, cache_len=None, moe_groups=1, patch_embeds=None,
+            part=WHOLE):
+    """-> (logits (B, V) of the last position, caches). With a serving
+    `parallel.partition.ServingPartition`: the rank's rows (`tokens` its
+    rows, whole along T) and its chunks of their caches."""
     B, T = tokens.shape
-    caches = init_caches(cfg, B, cache_len or T, device=tokens.device)
+    caches = init_caches(cfg, B * part.nb, cache_len or T, device=tokens.device, part=part)
+    top = part.tops(params, TOP)
     hidden, _, caches = forward(params, cfg, tokens, mode="prefill",
                                 caches=caches, patch_embeds=patch_embeds,
-                                moe_groups=moe_groups)
-    W = unembed_matrix(params, cfg, hidden.dtype)
-    logits = (hidden[:, -1:] @ W).float()
-    return logits[:, 0], caches
+                                moe_groups=moe_groups, part=part, top=top)
+    if part.seq(cfg, T):  # the last position is the last model rank's
+        hidden = part.whole(hidden[:, -1:], 1)
+    return logits_of(top, cfg, hidden, part), caches
 
 
-def decode_step(params, cfg, caches, token, pos: int, moe_groups=1):
+def decode_step(params, cfg, caches, token, pos: int, moe_groups=1, part=WHOLE):
     """token: (B, 1) integer tensor; pos: the absolute position (an int).
     Returns (logits (B, V), caches), the caches written in place."""
+    top = part.tops(params, TOP)
     hidden, _, caches = forward(params, cfg, token, mode="decode",
                                 pos_offset=int(pos), caches=caches,
-                                moe_groups=moe_groups)
-    W = unembed_matrix(params, cfg, hidden.dtype)
-    return constraint((hidden[:, -1] @ W).float(), "batch", "model"), caches
+                                moe_groups=moe_groups, part=part, top=top)
+    return logits_of(top, cfg, hidden, part), caches

@@ -17,10 +17,10 @@ does. The cells of `launch.dryrun` give every rank the same shapes (every
 sharded dim splits evenly: the rules replicate a dim its axes do not
 divide), so the counts of rank 0 are every rank's, with one exception:
 a decode step writes its new key and value into the one chunk of the
-cache's sequence dim that holds the position (`parallel.sharding.
-write_at`), so the rank holding that chunk copies (B, 1, Hkv, dh) more
-than the others; the dry run writes the last position, which rank 0
-does not hold.
+cache's sequence dim that holds the position
+(`models.attention.cache_insert`), so the rank holding that chunk copies
+(B, 1, Hkv, dh) more than the others; the dry run writes the last
+position, which rank 0 does not hold.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ device, joined by PyTorch's threaded process group.
 A machine with one card and no second process can still run the sharded
 train step, the sharded restore and the collectives with real values:
 every rank is a thread of this process, every rank's tensors live on the
-same device, and the collectives of `torch.distributed` (and DTensor's)
-run through the threaded backend of
+same device, and the collectives of `torch.distributed` run through the
+threaded backend of
 `torch.testing._internal.distributed.multi_threaded_pg`. This module is
 the only user of that private API; if it is missing, `run` raises (there
 is no fallback to one rank). Under `torchrun` with NCCL the same package

@@ -37,11 +37,23 @@ add up to their batch rank's (each counts the tokens it owns, and the
 balance loss once over them). So the gradients summed over the ranks that
 hold a chunk are its gradient, whether the work that used it was split or
 repeated.
+
+Serving (`ServingPartition`, the rank's part of sharded prefill and
+decode, no gradient) adds the layout of the rank's batch rows and of its
+cache chunks (`parallel.sharding.cache_pspec`): the span of a KV cache's
+positions the rank holds, the axes whose ranks hold the other spans (over
+which flash-decoding combines), and gathers and sums over the batch axes.
+With one rank, or a training `Partition`, a cache is whole and the rows
+are the rank's own.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+from .sharding import NamedSharding, cache_pspec
 
 
 def _collectives():
@@ -246,6 +258,103 @@ class Partition:
         if b is not None:
             y = y + (self.mine(b, 0) if cols else b).to(dtype)
         return y, "cols" if cols else "full", None
+
+
+    # -- batch rows and caches (whole here: `ServingPartition`) -----------
+    nb = 1            # the parts the batch axes split the rows into
+    cache_len = None  # the positions of a self-attention KV cache
+
+    def all_rows(self, t):
+        """Every batch rank's rows of `t` (dim 0), in the batch's order."""
+        return t
+
+    def my_rows(self, t):
+        """This rank's rows of an `all_rows` tensor."""
+        return t
+
+    def reduce(self, t, axes, op=None):
+        """The sum (or `op`) over the ranks along `axes` of `t`, in place."""
+        return t
+
+    def join(self, t, dim: int, axes):
+        """The ranks' chunks of `t` along `dim`, split over `axes` (major
+        first), gathered whole."""
+        return t
+
+    def span(self, name: str, n: int) -> tuple:
+        """(lo, hi, axes): the positions [lo, hi) of a KV cache leaf `name`
+        ("k", "cross_k") of n positions that this rank holds, and the mesh
+        axes whose ranks hold the others."""
+        return 0, n, ()
+
+    def cache_chunk(self, path: str, shape) -> tuple:
+        """The global index ranges (a `slice` a dim) of the cache leaf at
+        `path` of the global `shape` that this rank holds."""
+        return tuple(slice(0, n) for n in shape)
+
+
+def row_parts(mesh, B: int) -> int:
+    """The parts B rows are split into over `mesh`'s batch axes: all of
+    them when they divide B (`batch_sharding`), else 1 (every rank holds
+    every row)."""
+    n = math.prod(n for a, n in mesh.shape.items() if a in ("pod", "data"))
+    return n if B % n == 0 else 1
+
+
+class ServingPartition(Partition):
+    """Rank `rank` of `mesh` serving B rows (global) into caches of S
+    positions: `Partition`'s model ranks, the gather plans of its weights
+    (`plans`: the chunks the serving rules split over the batch axes), and
+    the serving layout -- rows split over the batch axes when they divide
+    B (else every rank holds them all), caches at `cache_pspec`
+    (long-context when B = 1)."""
+
+    def __init__(self, mesh, rank: int, dm, B: int, S: int, plans: dict | None = None,
+                 traffic: dict | None = None):
+        coords = mesh.coords(rank)
+        super().__init__(mesh.shape.get("model", 1), coords.get("model", 0), dm, plans,
+                         traffic)
+        self.mesh, self.rank, self.coords = mesh, int(rank), coords
+        self.batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        self.nb = row_parts(mesh, B)
+        self.long_ctx, self.cache_len = B == 1, int(S)
+
+    def all_rows(self, t):
+        return t if self.nb == 1 else self.join(t, 0, self.batch_axes)
+
+    def my_rows(self, t):
+        if self.nb == 1:
+            return t
+        i = 0
+        for a in self.batch_axes:
+            i = i * self.mesh.shape[a] + self.coords[a]
+        n = t.shape[0] // self.nb
+        return t.narrow(0, i * n, n)
+
+    def reduce(self, t, axes, op=None):
+        c = _collectives()
+        for a in axes:
+            c.all_reduce(t, self.dm, a, self.traffic, op=op)
+        return t
+
+    def join(self, t, dim: int, axes):
+        c = _collectives()
+        for a in reversed(axes):
+            t = c.all_gather_dim(t, dim, self.dm, a, self.traffic)
+        return t
+
+    def _sharding(self, path: str, shape):
+        return NamedSharding(self.mesh, cache_pspec(path, tuple(shape), self.long_ctx,
+                                                    self.mesh))
+
+    def span(self, name: str, n: int) -> tuple:
+        s = self._sharding(name, (1, n, 1, 1))
+        axes = s._dim_axes(4)[1]
+        rows = s.chunk((1, n, 1, 1), self.rank)[1]
+        return rows.start, rows.stop, axes
+
+    def cache_chunk(self, path: str, shape) -> tuple:
+        return self._sharding(path, shape).chunk(tuple(shape), self.rank)
 
 
 WHOLE = Partition()

@@ -175,14 +175,11 @@ def batch_axes():
     return tuple(names) if names else None
 
 
-def seq_axis(T: int, x=None):
+def seq_axis(T: int):
     """'model' if the live mesh can evenly shard a length-T sequence dim,
-    else None (decode steps with T=1, odd tails, or no mesh). None too for
-    a DTensor activation `x`: sharded serving keeps the sequence whole
-    (PyTorch 2.11's DTensor cannot fold a sharded sequence dim into the
-    batch dim of a matrix product)."""
+    else None (decode steps with T=1, odd tails, or no mesh)."""
     m = current_mesh()
-    if m is None or "model" not in m.axis_names or is_dtensor(x):
+    if m is None or "model" not in m.axis_names:
         return None
     size = m.shape["model"]
     return "model" if T % size == 0 and T >= size else None
@@ -521,10 +518,9 @@ class _BatchSum(torch.autograd.Function):
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """`x` averaged over the batch ranks when a mesh is current and its
     process group is live (each rank then holds its shard of the batch, and
-    a mean over tokens must be global); `x` itself otherwise, and for a
-    DTensor (whose own mean over the batch was already global)."""
+    a mean over tokens must be global); `x` itself otherwise."""
     m = current_mesh()
-    if not live(m) or is_dtensor(x):
+    if not live(m):
         return x
     names = [n for n in ("pod", "data") if n in m.axis_names]
     if not names:
@@ -559,109 +555,6 @@ def constraint(x, *spec):
         # rules' divisibility guard; DTensor would split it unevenly)
         resolved.append(s if s is None or n % _axis_size(m, s) == 0 else None)
     return x.redistribute(x.device_mesh, NamedSharding(m, P(*resolved)).placements(x.ndim))
-
-
-# ---------------------------------------------------------------------------
-# DTensors: serving on a mesh (`serve.sharded`, `launch.dryrun`)
-# ---------------------------------------------------------------------------
-
-def is_dtensor(x) -> bool:
-    if not isinstance(x, torch.Tensor):
-        return False
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
-
-
-def dtensor(local: torch.Tensor, sharding: NamedSharding, shape) -> torch.Tensor:
-    """The DTensor of global `shape` under `sharding` whose chunk on this
-    rank is `local` (the live mesh's `DeviceMesh`)."""
-    from torch.distributed.tensor import DTensor
-
-    shape = tuple(shape)
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local, device_mesh(sharding.mesh),
-                              sharding.placements(len(shape)), run_check=False,
-                              shape=torch.Size(shape), stride=stride)
-
-
-def distribute(t: torch.Tensor, sharding: NamedSharding, rank: int) -> torch.Tensor:
-    """A whole tensor held by every rank -> the DTensor whose chunk on
-    `rank` is its slice under `sharding` (a view: no communication, no
-    copy)."""
-    return dtensor(sharding.local(t, rank), sharding, t.shape)
-
-
-def write_at(t: torch.Tensor, dim: int, start: int, value) -> None:
-    """t[..., start:start + n, ...] = value along `dim`, in place (n the
-    extent of `value` along `dim`; a number fills to the end of `dim`).
-
-    A plain `t` is written through a view. A DTensor `t` whose `dim` is
-    split over mesh axes (a cache's sequence dim) cannot be written through
-    a view: DTensor would gather the dim first and write the gathered copy.
-    So `value` is laid out as `t` with `dim` replicated (a redistribution
-    by hand: a slice of a replicated value moves no bytes) and each rank
-    copies the part of the range that falls in its own chunk of `dim`."""
-    if not is_dtensor(t):
-        if isinstance(value, (int, float)):
-            t.narrow(dim, start, t.shape[dim] - start).fill_(value)
-        else:
-            t.narrow(dim, start, value.shape[dim]).copy_(value)
-        return
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh, places = t.device_mesh, t.placements
-    local = t.to_local()
-    lo, hi = dim_range(t, dim)
-    if isinstance(value, (int, float)):
-        a = max(lo, start)
-        if a < hi:
-            local.narrow(dim, a - lo, hi - a).fill_(value)
-        return
-    n = value.shape[dim]
-    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in places]
-    if not isinstance(value, DTensor):
-        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-    v = value.redistribute(mesh, want).to_local()
-    a, b = max(lo, start), min(hi, start + n)
-    if a < b:
-        local.narrow(dim, a - lo, b - a).copy_(v.narrow(dim, a - start, b - a))
-
-
-def even_split(x, dim: int, parts: int):
-    """`x` itself, unless it is a DTensor whose `dim` is split over mesh
-    axes whose product does not divide `parts` (the units the dim is about
-    to be split into: heads): those axes then replicate the dim."""
-    if not is_dtensor(x):
-        return x
-    from torch.distributed.tensor import Replicate
-
-    places, n, changed = list(x.placements), 1, False
-    for i, p in enumerate(places):
-        if p.is_shard(dim % x.ndim):
-            if parts % (n * x.device_mesh.size(i)):
-                places[i], changed = Replicate(), True
-            else:
-                n *= x.device_mesh.size(i)
-    return x.redistribute(x.device_mesh, places) if changed else x
-
-
-def dim_range(t, dim: int) -> tuple:
-    """[lo, hi) of `dim` that this rank's chunk of the DTensor `t` holds:
-    split evenly over the mesh axes that shard it, in mesh order."""
-    from torch.distributed.tensor import Shard
-
-    coord = t.device_mesh.get_coordinate()
-    lo, size = 0, t.shape[dim]
-    for i, p in enumerate(t.placements):
-        if p.is_shard(dim):
-            if type(p) is not Shard:
-                raise ValueError(f"write_at: {p} on dim {dim} is not an even split")
-            n = t.device_mesh.size(i)
-            size //= n
-            lo += coord[i] * size
-    return lo, lo + size
 
 
 # ---------------------------------------------------------------------------

@@ -4,14 +4,16 @@ world of CPU ranks (`repro_torch.parallel.local_world`) against the
 reference's single-device `prefill` and `decode_step`.
 
 Smoke configs in f32, weights drawn by the reference (key 0) and carried
-across by `params_from_jax`; each rank holds them at the serving
-placements (DTensors), its batch rows at `batch_sharding` (replicated
-when B = 1, the long-context layout: the caches' S over data + model).
-A prefill of T tokens into caches of S positions, then N_DECODE decode
-steps; every rank's gathered logits equal the reference's within TOL (the
-decode tolerance of PERF.md). `moe_groups` is the reference dry run's,
-gcd(B, batch ranks). Several files, so that `--dist loadfile` spreads
-them.
+across by `params_from_jax`; each rank holds its chunks of them at the
+serving placements (plain tensors), its batch rows at `batch_sharding`
+(all of them when B = 1, the long-context layout: the caches' S over
+data + model), and runs the partitioned prefill and decode
+(`ss.Layout`, the models on the rank's `ServingPartition`). A prefill of
+T tokens into caches of S positions, then N_DECODE decode steps; every
+rank's logits (its rows, every column) equal the reference's within TOL
+(the decode tolerance of PERF.md). `moe_groups` is the reference dry
+run's, gcd(B, batch ranks). Several files, so that `--dist loadfile`
+spreads them.
 """
 import dataclasses
 import math
@@ -70,34 +72,32 @@ def reference(name: str, B: int):
 
 
 def sharded(name: str, B: int, jparams, batch, ticks):
-    """Every rank's gathered logits of the port's sharded prefill and
-    decode steps (list a rank of N_DECODE + 1 arrays)."""
+    """Every rank's rows and logits of the port's sharded prefill and
+    decode steps (a rank: (its row indices, N_DECODE + 1 arrays))."""
     cfg = dataclasses.replace(get_config(name, smoke=True), dtype="float32")
     api = build(cfg)
     params = params_from_jax(cfg, jparams, device="cpu")
     groups = math.gcd(B, 2)
     whole = {k: torch.from_numpy(v) for k, v in batch.items()}
+    layout = ss.Layout(MESH, B, S)
 
     def rank(r):
-        def place(x):
-            return ss.replicated(x, MESH) if B == 1 else ss.shard_batch(x, MESH, r)
-
         p = ss.shard_params(params, MESH, r)
-        logits, caches = ss.prefill(api, p, {k: place(v) for k, v in whole.items()},
-                                    cache_len=S, moe_groups=groups)
-        out = [logits.full_tensor().numpy()]
+        logits, caches = ss.prefill(api, p, {k: layout.rows(v, r) for k, v in whole.items()},
+                                    layout, moe_groups=groups)
+        out = [logits.numpy()]
         for i, t in enumerate(ticks):
-            logits, caches = ss.decode_step(api, p, caches, place(torch.from_numpy(t)),
-                                            T + i, moe_groups=groups)
-            out.append(logits.full_tensor().numpy())
-        return out
+            logits, caches = ss.decode_step(api, p, caches, layout.rows(torch.from_numpy(t), r),
+                                            T + i, layout, moe_groups=groups)
+            out.append(logits.numpy())
+        return layout.rows(torch.arange(B), r).numpy(), out
 
     return local_world.run(rank, MESH)
 
 
 def check(name: str, B: int = 4) -> None:
     want, jparams, batch, ticks = reference(name, B)
-    for r, got in enumerate(sharded(name, B, jparams, batch, ticks)):
+    for r, (rows, got) in enumerate(sharded(name, B, jparams, batch, ticks)):
         for i, (g, w) in enumerate(zip(got, want)):
-            np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL,
+            np.testing.assert_allclose(g, w[rows], rtol=TOL, atol=TOL,
                                        err_msg=f"{name} B {B} rank {r} step {i}")
