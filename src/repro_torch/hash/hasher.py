@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import hostref, limbs
 from ..core.device import as_tokens, resolve_device
 from ..core.keys import MultiKeyBuffer, planes_to_keys
@@ -135,29 +136,38 @@ class Hasher:
         return out[..., 0] if self.spec.out_bits == 32 else out
 
     def _hash_slots(self, tokens, lengths=None, mod_m=None) -> torch.Tensor:
-        """(..., N) tokens -> (..., K, 2) slots in one fused launch."""
-        spec = self.spec
-        toks = as_tokens(tokens, self.device)
-        batch_shape = toks.shape[:-1]
-        N = toks.shape[-1]
-        toks2 = toks.reshape(-1, N).contiguous()
-        B = toks2.shape[0]
-        W = self._required_width(N)
-        if self.capacity < W:
-            raise ValueError(
-                f"Hasher capacity {self.capacity} < required width {W} for "
-                f"rows of {N} tokens; use hasher.ensure({N})")
-        if lengths is None:
-            code = torch.full((B,), N if spec.variable_length else -(N + 1),
-                              dtype=torch.int32, device=self.device)
-        else:
-            if not spec.variable_length:
-                raise ValueError("lengths only apply with variable_length=True")
-            code = torch.as_tensor(lengths, device=self.device).reshape(-1).to(
-                torch.int32)
-        out = kops.multihash(toks2, self.keys, code, family=spec.family,
-                             mod_m=mod_m, width=W)
-        return out.reshape(*batch_shape, spec.n_hashes, 2)
+        """(..., N) tokens -> (..., K, 2) slots in one fused launch. Every
+        tensor call (`__call__`, `probe_indices`, `shard_ids`, `bit_planes`)
+        comes through here: while tracing is on it is the call's root span,
+        `hasher.hash_slots` (`hash_batch` starts at the launch layer's
+        `launch.multihash` instead)."""
+        sp = tracing.begin("hasher.hash_slots") if tracing.ON else None
+        try:
+            spec = self.spec
+            toks = as_tokens(tokens, self.device)
+            batch_shape = toks.shape[:-1]
+            N = toks.shape[-1]
+            toks2 = toks.reshape(-1, N).contiguous()
+            B = toks2.shape[0]
+            W = self._required_width(N)
+            if self.capacity < W:
+                raise ValueError(
+                    f"Hasher capacity {self.capacity} < required width {W} for "
+                    f"rows of {N} tokens; use hasher.ensure({N})")
+            if lengths is None:
+                code = torch.full((B,), N if spec.variable_length else -(N + 1),
+                                  dtype=torch.int32, device=self.device)
+            else:
+                if not spec.variable_length:
+                    raise ValueError("lengths only apply with variable_length=True")
+                code = torch.as_tensor(lengths, device=self.device).reshape(-1).to(
+                    torch.int32)
+            out = kops.multihash(toks2, self.keys, code, family=spec.family,
+                                 mod_m=mod_m, width=W)
+            return out.reshape(*batch_shape, spec.n_hashes, 2)
+        finally:
+            if sp is not None:
+                tracing.end(sp)
 
     @property
     def _is_gf(self) -> bool:

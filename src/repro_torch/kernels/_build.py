@@ -17,6 +17,7 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import tracing
 from . import autotune
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,11 +26,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The fused K-hash engine's C signature:
+# The fused K-hash engine's C signature; stats is null, or the u64 pairs of
+# lane and live column counts the kernels add to (`tracing.engine_counts`):
 # int repro_<name>(tokens, keys, lens, out, part, B, N, W, K, ldk, pairwise,
-#                  split, mod_m, stream)
+#                  split, mod_m, stats, stream)
 _ENGINE = ([_P] * 5 + [_I] * 4
-           + [ctypes.c_longlong, _I, _I, ctypes.c_ulonglong, _P])
+           + [ctypes.c_longlong, _I, _I, ctypes.c_ulonglong, _P, _P])
 # The integer single-hash kernel's C signature:
 # int repro_multilinear(tokens, keys, part, out, B, N, pairwise, stream)
 _SINGLE = [_P] * 4 + [_I] * 3 + [_P]
@@ -131,12 +133,19 @@ def c_function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
 
 def launch(name: str, device, *args) -> None:
     """Launch kernel `name` on the current stream of `device`. `args` are
-    its C arguments before the stream: a tensor passes its data pointer."""
+    its C arguments before the stream: a tensor passes its data pointer.
+    While tracing is on the C call alone is a span `launch.c`."""
     import torch
 
     fn = getattr(load(name), f"repro_{name}")
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
-        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        sp = tracing.begin("launch.c") if tracing.ON else None
+        try:
+            err = fn(*ptrs, stream)
+        finally:
+            if sp is not None:
+                tracing.end(sp)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -27,6 +27,16 @@
 // among its warps. With one split the lane runs the epilogue itself;
 // otherwise it writes its partial sums to part[split][k][b] and
 // engine_finish combines the splits and runs the epilogue.
+//
+// Counts. Given a non-null `stats` (the port's tracer is on), each warp
+// adds the lane columns it hashes in its split, 32 x (wend - cs), and the
+// live ones, the sum over its lanes of the row's tokens and sentinel inside
+// the split (exact below 2^27 columns a row), to one of ET_STAT_SLOTS
+// pairs, each on its own 256-byte line: one atomicAdd each a warp, and
+// warps that start together add to different lines (a single pair for
+// every warp cost the kernel 1.5 % of its time at 2^20 rows of 13 tokens
+// on an H100). The sums over the pairs give the lane waste. A null
+// `stats` costs one test.
 #pragma once
 
 #include "engine_common.cuh"
@@ -41,6 +51,8 @@
 // bank conflict.
 #define ET_STRIDE (ET_TILE + 4)
 #define ET_FULL 0xffffffffu
+#define ET_STAT_SLOTS 64          // pairs of counts (tracing.ENGINE_SLOTS)
+#define ET_STAT_STRIDE 32         // u64 from one pair to the next
 
 // Key row length for KC functions, rounded up to an even count so a
 // column's keys start 16-byte aligned.
@@ -118,7 +130,8 @@ __global__ void __launch_bounds__(F::THREADS, F::MIN_BLOCKS)
 engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
                    const int* __restrict__ lens, long long* __restrict__ out,
                    u64* __restrict__ part, int B, int N, int W, int K, int Kt,
-                   long long ldk, int split, int vec, u64 mod_m, u64 mu) {
+                   long long ldk, int split, int vec, u64 mod_m, u64 mu,
+                   u64* __restrict__ stats) {
   constexpr int T = F::THREADS, WARPS = T / 32;
   constexpr int KCP = et_kcp<KC>();
   constexpr size_t TABLE = F::template table_bytes<KC, PAIRWISE, MMA>();
@@ -140,12 +153,13 @@ engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
   // the sentinel 1 at lm; code < 0 a fixed-length row of lm = -code-1.
   // It loads ld tokens and hashes key lanes below kend = even(lm + is_var).
   const int b = blockIdx.y * T + tid;
-  int ld = 0, sent = -1, kend = 0;  // past the batch: a dead row, never written
+  // past the batch: a dead row, never written
+  int ld = 0, sent = -1, kend = 0, end = 0;
   if (b < B) {
     const int code = lens[b];
     const bool is_var = code >= 0;
     const int lm = is_var ? code : -code - 1;
-    const int end = lm + (is_var ? 1 : 0);
+    end = lm + (is_var ? 1 : 0);
     ld = min(lm, N);
     sent = (is_var && lm < W) ? lm : -1;
     kend = min(end + (end & 1), W);
@@ -153,6 +167,17 @@ engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
   const int cs = blockIdx.x * split;
   const int ce = min(W, cs + split);
   const int wend = min(ce, __reduce_max_sync(ET_FULL, kend));
+  if (stats != nullptr) {
+    const unsigned live =
+        __reduce_add_sync(ET_FULL, (unsigned)max(0, min(end, ce) - cs));
+    if (lane == 0) {
+      const unsigned w = (blockIdx.x * gridDim.y + blockIdx.y) * WARPS + warp;
+      unsigned long long* c =
+          (unsigned long long*)stats + (w % ET_STAT_SLOTS) * ET_STAT_STRIDE;
+      atomicAdd(c, 32ull * (unsigned)max(0, wend - cs));
+      atomicAdd(c + 1, (unsigned long long)live);
+    }
+  }
   s_row[tid] = make_int2(ld, sent);
   if (lane == 0) s_end[warp] = wend;
   __syncthreads();
@@ -307,8 +332,8 @@ template <class F, int KC, bool PAIRWISE, bool MMA>
 static cudaError_t launch_engine_kc(const u32* t, const u64* k, const int* l,
                                     long long* o, u64* p, int B, int N, int W,
                                     int K, int Kt, long long ldk, int split,
-                                    int vec, u64 mod_m, u64 mu, dim3 grid,
-                                    cudaStream_t s) {
+                                    int vec, u64 mod_m, u64 mu, u64* stats,
+                                    dim3 grid, cudaStream_t s) {
   constexpr size_t smem = engine_smem<F, KC, PAIRWISE, MMA>();
   // The opt-in above 48 KB, once per device (not per call: a launch then
   // enqueues nothing else, so it can be captured in a CUDA graph).
@@ -323,7 +348,7 @@ static cudaError_t launch_engine_kc(const u32* t, const u64* k, const int* l,
     granted[dev & 63] = true;
   }
   engine_tile_kernel<F, KC, PAIRWISE, MMA><<<grid, F::THREADS, smem, s>>>(
-      t, k, l, o, p, B, N, W, K, Kt, ldk, split, vec, mod_m, mu);
+      t, k, l, o, p, B, N, W, K, Kt, ldk, split, vec, mod_m, mu, stats);
   return cudaSuccess;
 }
 
@@ -332,17 +357,17 @@ template <class F, bool PAIRWISE>
 static cudaError_t launch_engine_chunk(const u32* t, const u64* k, const int* l,
                                        long long* o, u64* p, int B, int N, int W,
                                        int kn, int Kt, long long ldk, int split,
-                                       int vec, u64 mod_m, u64 mu, dim3 grid,
-                                       cudaStream_t s) {
+                                       int vec, u64 mod_m, u64 mu, u64* stats,
+                                       dim3 grid, cudaStream_t s) {
   constexpr bool MMA = F::HAS_MMA && !PAIRWISE;
   if (kn <= 1)
     return launch_engine_kc<F, 1, PAIRWISE, MMA>(t, k, l, o, p, B, N, W, kn, Kt, ldk,
-                                                 split, vec, mod_m, mu, grid, s);
+                                                 split, vec, mod_m, mu, stats, grid, s);
   if (kn <= 3)
     return launch_engine_kc<F, 3, PAIRWISE, MMA>(t, k, l, o, p, B, N, W, kn, Kt, ldk,
-                                                 split, vec, mod_m, mu, grid, s);
+                                                 split, vec, mod_m, mu, stats, grid, s);
   return launch_engine_kc<F, 9, PAIRWISE, MMA>(t, k, l, o, p, B, N, W, kn, Kt, ldk,
-                                               split, vec, mod_m, mu, grid, s);
+                                               split, vec, mod_m, mu, stats, grid, s);
 }
 
 // Dynamic shared memory of one block of the launch for K functions (the
@@ -365,19 +390,22 @@ size_t engine_smem_bytes(int K, int pairwise) {
 // stream order). Rows go on grid.y, which holds at most 65,535 blocks, so
 // a batch of more rows runs in chunks of that many row blocks, one after
 // another on the stream: one call covers any B. The epilogue's reciprocal
-// of mod_m is taken here, on the host. Returns the first CUDA error
-// (cudaGetLastError() after the launches).
+// of mod_m is taken here, on the host. `stats`, null or the tracer's
+// ET_STAT_SLOTS x ET_STAT_STRIDE u64 counts, goes to every tile launch, so
+// each pass and row chunk counts its own columns. Returns the first CUDA error (cudaGetLastError()
+// after the launches).
 template <class F>
 int launch_engine(const void* tokens, const void* keys, const void* lens,
                   void* out, void* part, int B, int N, int W, int K,
                   long long ldk, int pairwise, int split, u64 mod_m,
-                  void* stream) {
+                  void* stats, void* stream) {
   if (F::HAS_MMA && !pairwise && split > ET_MAX_SPLIT)
     return (int)cudaErrorInvalidValue;  // the s32 sums could overflow
   const int S = W > split ? (W + split - 1) / split : 1;
   constexpr int MAX_ROWS = 65535 * F::THREADS;
   cudaStream_t s = (cudaStream_t)stream;
   u64* p = (u64*)part;
+  u64* c = (u64*)stats;
   const u64 mu = mod_m ? ~0ull / mod_m : 0;
   for (int r0 = 0; r0 < B; r0 += MAX_ROWS) {
     const int bc = min(MAX_ROWS, B - r0);
@@ -391,9 +419,9 @@ int launch_engine(const void* tokens, const void* keys, const void* lens,
       long long* o = (long long*)out + ((size_t)r0 * K + k0) * 2;
       const cudaError_t e =
           pairwise ? launch_engine_chunk<F, true>(t, k, l, o, p, bc, N, W, kn, K, ldk,
-                                                  split, vec, mod_m, mu, grid, s)
+                                                  split, vec, mod_m, mu, c, grid, s)
                    : launch_engine_chunk<F, false>(t, k, l, o, p, bc, N, W, kn, K, ldk,
-                                                   split, vec, mod_m, mu, grid, s);
+                                                   split, vec, mod_m, mu, c, grid, s);
       if (e != cudaSuccess) return (int)e;
       if (S > 1) {
         const long long n = (long long)bc * kn;

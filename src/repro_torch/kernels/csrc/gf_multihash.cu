@@ -126,9 +126,10 @@ extern "C" int repro_gf_multihash(const void* tokens, const void* keys,
                                   const void* lens, void* out, void* part,
                                   int B, int N, int W, int K, long long ldk,
                                   int pairwise, int split,
-                                  unsigned long long mod_m, void* stream) {
+                                  unsigned long long mod_m, void* stats,
+                                  void* stream) {
   return launch_engine<GfEngine>(tokens, keys, lens, out, part, B, N, W, K,
-                                 ldk, pairwise, split, mod_m, stream);
+                                 ldk, pairwise, split, mod_m, stats, stream);
 }
 
 extern "C" long long repro_gf_multihash_smem(int K, int pairwise) {

@@ -7,24 +7,29 @@ gf_multilinear_hm), which use the low 32 bits of each key.
 Operand layout and slots: see `kernels.ref`. The output is (B, K, 2) int64
 holding u32 values.
 
-A CUDA tensor launches the kernel (and adds one to `launch_count()`); a CPU
-tensor runs the plain version `ref.gf_multihash_ref`. Nothing else falls back.
+A CUDA tensor launches the kernel (and adds one to `launch_count()`, the
+counter `launch.gf_multihash` of `repro_torch.tracing`); a CPU tensor runs
+the plain version `ref.gf_multihash_ref`. Nothing else falls back. Its
+engine counters are `multihash.launch_engine`'s.
 """
 from __future__ import annotations
 
+from .. import tracing
 from . import ref
 from .multihash import launch_engine
 
-_LAUNCHES = [0]
+_LAUNCHES = tracing.counter("launch.gf_multihash", always=True)
 
 
 def launch_count() -> int:
-    """Kernel launches since the last `reset_count()` (CUDA only)."""
-    return _LAUNCHES[0]
+    """Kernel launches since the last `reset_count()` (CUDA only): the
+    counter `launch.gf_multihash` of `repro_torch.tracing`, kept whether
+    tracing is on or off."""
+    return _LAUNCHES.n
 
 
 def reset_count() -> None:
-    _LAUNCHES[0] = 0
+    _LAUNCHES.n = 0
 
 
 def gf_multihash(tokens, keys, lens, *, family="gf_multilinear",
@@ -39,5 +44,5 @@ def gf_multihash(tokens, keys, lens, *, family="gf_multilinear",
     if family not in ref.GF_FAMILIES:
         raise ValueError(f"{family!r} is not a carry-less engine family")
     out = launch_engine("gf_multihash", tokens, keys, lens, family, mod_m, W)
-    _LAUNCHES[0] += int(out.shape[0] > 0)
+    _LAUNCHES.n += int(out.shape[0] > 0)
     return out

@@ -12,8 +12,9 @@ gf_hash_blocks` (`_gf_kernel`, `_gf_hm_kernel`) for the GF(2^32) families
   read on the card as key 0, so `ops.gf_hash` is one launch.
 
 Operand layout: see `kernels.ref` (single-hash layout). A CUDA tensor
-launches the kernel (and adds one to `launch_count()`); a CPU tensor runs
-the plain version (`ref.gf_accumulate_ref`, `ref.gf_hash_ref`). Nothing
+launches the kernel (and adds one to `launch_count()`, the counter
+`launch.gf_multilinear` of `repro_torch.tracing`); a CPU tensor runs the
+plain version (`ref.gf_accumulate_ref`, `ref.gf_hash_ref`). Nothing
 else falls back.
 """
 from __future__ import annotations
@@ -22,19 +23,22 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import _build, autotune, ref
 from .multihash import _sm_count
 
-_LAUNCHES = [0]
+_LAUNCHES = tracing.counter("launch.gf_multilinear", always=True)
 
 
 def launch_count() -> int:
-    """Kernel launches since the last `reset_count()` (CUDA only)."""
-    return _LAUNCHES[0]
+    """Kernel launches since the last `reset_count()` (CUDA only): the
+    counter `launch.gf_multilinear` of `repro_torch.tracing`, kept whether
+    tracing is on or off."""
+    return _LAUNCHES.n
 
 
 def reset_count() -> None:
-    _LAUNCHES[0] = 0
+    _LAUNCHES.n = 0
 
 
 def split_of(B: int, N: int, family: str, device) -> int:
@@ -63,7 +67,7 @@ def _launch(tokens, keys, family: str, finish: bool) -> torch.Tensor:
             if splits > 1 else out)  # unused with one split
     _build.launch("gf_multilinear", tokens.device, tokens, keys, part, out, B,
                   N, int(family in ref.PAIRWISE), int(finish), split)
-    _LAUNCHES[0] += 1
+    _LAUNCHES.n += 1
     return out
 
 

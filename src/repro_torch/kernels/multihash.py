@@ -5,8 +5,12 @@ for the integer families (multilinear, multilinear_2x2, multilinear_hm).
 Operand layout and slots: see `kernels.ref`. The output is (B, K, 2) int64
 holding u32 values.
 
-A CUDA tensor launches the kernel (and adds one to `launch_count()`); a CPU
-tensor runs the plain version `ref.multihash_ref`. Nothing else falls back.
+A CUDA tensor launches the kernel (and adds one to `launch_count()`, the
+counter `launch.multihash` of `repro_torch.tracing`); a CPU tensor runs the
+plain version `ref.multihash_ref`. Nothing else falls back. While tracing
+is on, `launch_engine` of either engine adds the bytes of its slots and
+split partials to `engine.slot_bytes` and hands the kernels the card's
+`engine.lane_columns` / `engine.live_columns` buffer.
 """
 from __future__ import annotations
 
@@ -14,19 +18,23 @@ import functools
 
 import torch
 
+from .. import tracing
 from ..core.limbs import as_plan
 from . import _build, autotune, ref
 
-_LAUNCHES = [0]
+_LAUNCHES = tracing.counter("launch.multihash", always=True)
+_SLOT_BYTES = tracing.counter("engine.slot_bytes")
 
 
 def launch_count() -> int:
-    """Kernel launches since the last `reset_count()` (CUDA only)."""
-    return _LAUNCHES[0]
+    """Kernel launches since the last `reset_count()` (CUDA only): the
+    counter `launch.multihash` of `repro_torch.tracing`, kept whether
+    tracing is on or off."""
+    return _LAUNCHES.n
 
 
 def reset_count() -> None:
-    _LAUNCHES[0] = 0
+    _LAUNCHES.n = 0
 
 
 def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
@@ -41,7 +49,7 @@ def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
     if family not in ref.INT_FAMILIES:
         raise ValueError(f"{family!r} is not an integer engine family")
     out = launch_engine("multihash", tokens, keys, lens, family, mod_m, W)
-    _LAUNCHES[0] += int(out.shape[0] > 0)
+    _LAUNCHES.n += int(out.shape[0] > 0)
     return out
 
 
@@ -65,7 +73,10 @@ def launch_engine(name: str, tokens, keys, lens, family: str, mod_m,
     per-split partial sums go to a scratch tensor and the kernel's second
     pass combines them; more rows than one grid holds (65,535 row blocks)
     run in row chunks inside the C launcher. It is one call of the C
-    launcher either way."""
+    launcher either way. While tracing is on it counts the bytes of `out`
+    and of `part` (where it is used) in `engine.slot_bytes`, and the kernels
+    add their lane and live columns to the card's `tracing.engine_counts`;
+    off, they get a null pointer."""
     B, N = tokens.shape
     K = keys.shape[0]
     plan = as_plan(mod_m)
@@ -76,7 +87,11 @@ def launch_engine(name: str, tokens, keys, lens, family: str, mod_m,
     splits = autotune.engine_splits(W, split)
     part = (torch.empty((splits, K, B), dtype=torch.int64, device=tokens.device)
             if splits > 1 else out)  # unused with one split
+    stats = None
+    if tracing.ON:
+        _SLOT_BYTES.n += 8 * (out.numel() + (part.numel() if splits > 1 else 0))
+        stats = tracing.engine_counts(tokens.device)
     _build.launch(name, tokens.device, tokens, keys, lens, out, part, B, N, W,
                   K, keys.stride(0), int(family in ref.PAIRWISE), split,
-                  0 if plan is None else plan.m)
+                  0 if plan is None else plan.m, stats)
     return out

@@ -6,26 +6,29 @@ Replaces the reference's Pallas `repro.kernels.multilinear.hash_blocks`
 keyed hash per row, without m1 and without the final >> 32. Operand layout:
 see `kernels.ref` (single-hash layout).
 
-A CUDA tensor launches the kernel (and adds one to `launch_count()`); a CPU
-tensor runs the plain version `ref.multilinear_accumulate_ref`. Nothing
-else falls back.
+A CUDA tensor launches the kernel (and adds one to `launch_count()`, the
+counter `launch.multilinear` of `repro_torch.tracing`); a CPU tensor runs
+the plain version `ref.multilinear_accumulate_ref`. Nothing else falls back.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import _build, autotune, ref
 
-_LAUNCHES = [0]
+_LAUNCHES = tracing.counter("launch.multilinear", always=True)
 
 
 def launch_count() -> int:
-    """Kernel launches since the last `reset_count()` (CUDA only)."""
-    return _LAUNCHES[0]
+    """Kernel launches since the last `reset_count()` (CUDA only): the
+    counter `launch.multilinear` of `repro_torch.tracing`, kept whether
+    tracing is on or off."""
+    return _LAUNCHES.n
 
 
 def reset_count() -> None:
-    _LAUNCHES[0] = 0
+    _LAUNCHES.n = 0
 
 
 def launch_single(name: str, tokens, keys, family: str) -> torch.Tensor:
@@ -54,5 +57,5 @@ def hash_blocks(tokens, keys, *, family="multilinear"):
         raise ValueError(f"no multilinear kernel for device {tokens.device}")
     ref.single_shapes(tokens, keys, family, ref.INT_FAMILIES)
     out = launch_single("multilinear", tokens, keys, family)
-    _LAUNCHES[0] += 1
+    _LAUNCHES.n += 1
     return out

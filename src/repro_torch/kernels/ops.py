@@ -7,7 +7,10 @@ The port's counterpart of `repro.kernels.ops`:
   `launch_count()` counts engine dispatches on any device, as the
   reference's does, so batch consumers can show one launch per batch on
   the CPU too (each kernel module's own `launch_count()` counts only real
-  CUDA launches);
+  CUDA launches). The count is the counter `launch.dispatch` of
+  `repro_torch.tracing`, kept whether tracing is on or off; while tracing
+  is on, each dispatch is a span `launch.multihash` (the dispatch and the
+  wrapper, down to the C launcher's own span `launch.c`);
 - `multilinear_hash`, `gf_hash` and `hash_tokens_batched` compute one keyed
   hash of each fixed-length row, drawing from one key string with key 0 as
   m1. `multilinear_hash` takes the raw accumulator from its kernel
@@ -26,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.device import as_tokens, as_u32_values, resolve_device
 from ..core.keys import KeyBuffer
 from ..core.limbs import hi32
@@ -35,11 +39,11 @@ from . import gf_multilinear as gfk
 from . import multihash as mhk
 from . import multilinear as mlk
 
-_DISPATCHES = [0]
+_DISPATCHES = tracing.counter("launch.dispatch", always=True)
 
 
 def launch_count() -> int:
-    return _DISPATCHES[0]
+    return _DISPATCHES.n
 
 
 def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
@@ -48,12 +52,17 @@ def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
 
     See `kernels.ref` for the operand layout and the slot contract.
     """
-    _DISPATCHES[0] += 1
-    if FAMILIES[family].gf:
-        return gfmh.gf_multihash(tokens, keys, lens, family=family,
-                                 mod_m=mod_m, width=width)
-    return mhk.multihash(tokens, keys, lens, family=family, mod_m=mod_m,
-                         width=width)
+    _DISPATCHES.n += 1
+    sp = tracing.begin("launch.multihash") if tracing.ON else None
+    try:
+        if FAMILIES[family].gf:
+            return gfmh.gf_multihash(tokens, keys, lens, family=family,
+                                     mod_m=mod_m, width=width)
+        return mhk.multihash(tokens, keys, lens, family=family, mod_m=mod_m,
+                             width=width)
+    finally:
+        if sp is not None:
+            tracing.end(sp)
 
 
 def _rows(tokens, device):
