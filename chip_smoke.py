@@ -57,9 +57,14 @@ top of them -- at a deployment's scale and checks every result:
    that `gf_hash` launches), and the single-hash entry points' times at
    6a, with the device operations of one `gf_hash` call (torch.profiler;
    more than 8 fails the run). The carry-less rows also give their
-   design's own floor. An admission-batch row also gives the engine's
-   lane-per-row work over the live work (each warp hashes to its longest
-   row).
+   design's own floor. The rows with per-row lengths (the admission batch,
+   and a docs batch of B 65,536 x W 2,050 with Dolma-like lengths) run as
+   the Hasher runs them, in length order (csrc/engine_tile.cuh's ordering
+   kernel, then the tile kernel), and the docs batch again unordered; each
+   gives the engine's lane-per-row work over the live work (each warp
+   hashes to its longest row), the call's device operations and the
+   ordering and tile kernels' device times (torch.profiler), and these are
+   in the `kernels` line.
 
 7. tree fingerprints and checkpoints (`hash.tree`, `checkpoint`), a path of
    its own after phase 5, on the engine kernels at the tree-leaf shape (K 1,
@@ -327,6 +332,8 @@ SEED = 0x5EED
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit):
 # memory 3.35 TB/s; 32-bit integer instructions 64 lanes/SM x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
+# Rows the engine's row order sorts on their own (csrc/engine_tile.cuh EO_SEG).
+ORDER_SEG = 65536
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # shared memory: 128 bytes a clock on each SM (32 banks of 4 bytes).
 SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
@@ -403,7 +410,7 @@ class Port:
         from repro_torch.kernels import multihash as mhk
         from repro_torch.kernels import multilinear as mlk
         from repro_torch.parallel import data_mesh
-        from repro_torch import quality
+        from repro_torch import quality, tracing
         from repro_torch.configs import get_config
         from repro_torch.core import baselines
         from repro_torch.models import build, encdec, ssm, transformer
@@ -436,6 +443,7 @@ class Port:
         self.FaultEvent, self.FaultPlan = FaultEvent, FaultPlan
         self.FaultyTransport = FaultyTransport
         self.quality, self.baselines = quality, baselines
+        self.tracing = tracing
         self.get_config, self.build_model = get_config, build
         self.transformer, self.Request, self.ServeEngine = (transformer, Request,
                                                             ServeEngine)
@@ -556,13 +564,19 @@ def live_work(lens, N: int) -> tuple[int, int]:
     return int(np.minimum(lm, N).sum()), int((lm + (lens >= 0)).sum())
 
 
-def lane_work(lens, W: int) -> float:
-    """Columns the engine hashes with one row per lane (each warp of 32
-    consecutive rows runs to its longest row's kend) over the live ones."""
+def lane_work(lens, W: int, ordered: bool = False) -> float:
+    """Columns the engine hashes with one row per lane (each warp of 32 rows
+    runs to its longest row's kend) over the live ones. A warp's rows are 32
+    consecutive rows, or in a call whose rows run in length order
+    (`ordered`), 32 consecutive places of each segment of ORDER_SEG rows
+    sorted by kend, longest first."""
     lens = np.asarray(lens, np.int64)
     lm = np.where(lens >= 0, lens, -lens - 1)
     end = lm + (lens >= 0)
     kend = np.minimum(end + (end & 1), W)
+    if ordered:
+        kend = np.concatenate([-np.sort(-kend[i:i + ORDER_SEG])
+                               for i in range(0, len(kend), ORDER_SEG)])
     pad = -len(kend) % 32
     warps = np.concatenate([kend, np.zeros(pad, np.int64)]).reshape(-1, 32)
     return float(32 * warps.max(axis=1).sum() / max(1, int(end.sum())))
@@ -997,7 +1011,7 @@ def streaming(port: Port, device, n_tokens=4_194_304, chunk_words=1024,
 # --------------------------------------------------------------------------
 
 def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
-            card: str):
+            card: str, docs_rows: int = 65536):
     """Kernel vs plain version at the main path's shapes: equality, times
     and bounds. Returns the `kernels` records and a table of rows."""
     torch = port.torch
@@ -1011,6 +1025,16 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
     t_dense = torch.from_numpy(dense.view(np.int32)).to(device)
     t_lens_b = torch.from_numpy(lens_b.astype(np.int32)).to(device)
     W_b = dense.shape[1] + 2 + (dense.shape[1] & 1)  # hash_batch's width
+    # a docs batch: exponential lengths of mean 635 cut at 2,048 (Dolma's
+    # sources, as the benchmark's docs traffic), shuffled
+    g = np.random.default_rng(SEED + 28)
+    N_docs = 2048
+    lens_docs = np.minimum(N_docs, 1 + g.exponential(635, docs_rows).astype(np.int64))
+    t_lens_docs = torch.from_numpy(lens_docs.astype(np.int32)).to(device)
+    t_docs = torch.randint(0, 50000, (docs_rows, N_docs), dtype=torch.int32,
+                           generator=torch.Generator(device=device).manual_seed(SEED + 28),
+                           device=device)
+    W_docs = N_docs + 2
     for family in ("multilinear", "gf_multilinear"):
         name = port.kernel_of(family)
         h = pure[family]["hasher"]
@@ -1035,38 +1059,62 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
                    "K": K, "ms": timed(port, fn, 20), "card": card}
             rows.append(row)
             print(json.dumps(row))
-        shapes = [("pure", toks, h.keys, code, W, pure["m"]),
-                  ("pure-nomod", toks, h.keys, code, W, None),
-                  ("admit-batch", t_dense, keys, t_lens_b, W_b, None)]
+        # the admission batch and a docs batch (B 65,536 x W 2,050, Dolma-like
+        # lengths) with the lengths given, as the Hasher's ragged calls run
+        # them (rows in length order), and the docs batch without
+        shapes = [("pure", toks, h.keys, code, W, pure["m"], False),
+                  ("pure-nomod", toks, h.keys, code, W, None, False),
+                  ("admit-batch", t_dense, keys, t_lens_b, W_b, None, True),
+                  ("docs", t_docs, h._keys_for_width(W_docs), t_lens_docs, W_docs,
+                   pure["m"], True),
+                  ("docs-unordered", t_docs, h._keys_for_width(W_docs), t_lens_docs,
+                   W_docs, pure["m"], False)]
         if family == "multilinear":  # the ExactDedup and HashPipeline launches
             shapes += [(f"admit-batch-K{k}", t_dense, port.Hasher.from_spec(
                 port.HashSpec(family=family, n_hashes=k, out_bits=64, seed=SEED),
-                device=device)._keys_for_width(W_b), t_lens_b, W_b, None)
+                device=device)._keys_for_width(W_b), t_lens_b, W_b, None, True)
                 for k in (1, 3)]
-        for label, t, kt, ln, width, mod_m in shapes:
+        for label, t, kt, ln, width, mod_m, ragged in shapes:
             run = lambda: port.ops.multihash(t, kt, ln, family=family,  # noqa: E731
-                                             mod_m=mod_m, width=width)
+                                             mod_m=mod_m, width=width, ragged=ragged)
             got = run()
-            want = port.plain(family, t, kt, ln, mod_m=mod_m, width=width)
+            want = plain_in_rows(port, family, t, kt, ln, mod_m, width)
             check(torch.equal(got, want), f"{family} {label}: kernel != plain")
             err = int((got - want).abs().max().item())
             del got, want
             ms, graph_ms = timed(port, run, 20), timed_graph(port, run, 20)
-            plain_ms = timed(port, lambda: port.plain(
-                family, t, kt, ln, mod_m=mod_m, width=width), 2)
+            plain_ms = timed(port, lambda: plain_in_rows(
+                port, family, t, kt, ln, mod_m, width), 2)
             k, lens_np = kt.shape[0], ln.cpu().numpy()
-            b_ms, b_by = bound(name, t.shape[0], t.shape[1], width, k, lens_np)
+            B_ = t.shape[0]
+            b_ms, b_by = bound(name, B_, t.shape[1], width, k, lens_np)
+            ordered = port.autotune.engine_orders(
+                B_, width, port.autotune.engine_rows(name), ragged)
             extra = {}
             if name == "gf_multihash":
                 extra["design_floor_ms"], extra["design_floor_by"] = design_floor(
-                    t.shape[0], t.shape[1], width, k, lens_np)
-            if label.startswith("admit-batch"):
-                extra["lane_per_row_work"] = lane_work(lens_np, width)
+                    B_, t.shape[1], width, k, lens_np)
+            if label.startswith(("admit-batch", "docs")):
+                extra["lane_per_row_work"] = lane_work(lens_np, width, ordered)
+                # the call's device operations: the ordering kernel beside the
+                # tile kernel (and the finish pass where split)
+                extra.update(engine_ops(port, run, name))
+                del extra["names"]
+                # the program's own count of its ordered calls decides; the
+                # profiler's count beside it can miss a record
+                port.tracing.enable()
+                run()
+                port.tracing.disable()
+                n_ord = port.tracing.snapshot()["counters"]["engine.ordered_calls"]
+                want = int(ordered and t.is_cuda)  # a CPU tensor runs the plain version
+                check(n_ord == want, f"{family} {label}: {n_ord} ordered calls "
+                      f"of one, expected {want}")
             row = {"kernel": name, "family": family, "shape": label,
-                   "B": t.shape[0], "W": width, "K": k, "mod_m": mod_m,
+                   "B": B_, "W": width, "K": k, "mod_m": mod_m,
+                   "ragged": ragged, "ordered": ordered,
                    "splits": port.autotune.engine_splits(
                        width, port.wrappers["multihash"].split_of(
-                           name, t.shape[0], width, device)),
+                           name, B_, width, device, ordered)),
                    "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, **extra,
                    "max_abs_err": err}
@@ -1082,6 +1130,11 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
                     **{key: v for key, v in extra.items()
                        if key.startswith("design_floor")},
                     "library_ms": None}
+            if label in ("admit-batch", "docs", "docs-unordered"):
+                records[name][label] = {key: row[key] for key in (
+                    "B", "W", "ordered", "splits", "ms", "graph_ms", "plain_ms",
+                    "bound_ms", "lane_per_row_work", "ops", "order_launches",
+                    "order_ms", "tile_ms", "finish_ms", "max_abs_err")}
         # the host part of one admission batch beside its launch
         bf_h = port.Hasher.from_spec(port.HashSpec(
             family=family, n_hashes=K, out_bits=64, seed=SEED), device=device)
@@ -1090,6 +1143,62 @@ def measure(port: Port, device, pure: dict, batch, K: int, launches: dict,
         print(f"{family}: hash_batch of one admission batch (stack, upload, "
               f"launch, download) {1e3 * (time.perf_counter() - t0):.3f} ms wall")
     return records, rows
+
+
+def plain_in_rows(port: Port, family: str, t, keys, lens, mod_m, width: int,
+                  step: int = 16384):
+    """The plain version a slab of `step` rows at a time (its (B, W)
+    temporaries stay small at the docs shape)."""
+    return port.torch.cat([port.plain(family, t[r:r + step], keys, lens[r:r + step],
+                                      mod_m=mod_m, width=width)
+                           for r in range(0, t.shape[0], step)])
+
+
+def engine_ops(port: Port, fn, kernel: str, calls: int = 5) -> dict:
+    """The device operations of an engine call fn of `kernel` under
+    torch.profiler (the card's activity alone), over `calls` warm calls:
+    {ops, order_launches} a call, {order_ms, tile_ms, finish_ms}: the
+    device ms of one launch of the ordering kernel, the tile kernel and the
+    finish pass (the mean over the records seen: the profiler can miss
+    one, as it missed one of five of the carry-less library's first
+    kernel in a window), and the names of the operations seen; None where
+    the profiler sees nothing here."""
+    torch = port.torch
+    from torch.profiler import ProfilerActivity, profile
+
+    none = {"ops": None, "order_launches": None, "order_ms": None,
+            "tile_ms": None, "finish_ms": None, "names": []}
+    fn()
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:  # the profiler itself, not the code under test
+        print(f"torch.profiler failed on the card: {exc!r}")
+        return none
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # the profiler itself, not the code under test
+        print(f"torch.profiler failed on the card: {exc!r}")
+        return none
+    if not dev:
+        return none
+    tag = "GfEngine" if kernel == "gf_multihash" else "IntEngine"
+
+    def of(what):
+        us = [e.time_range.elapsed_us() for e in dev if what in e.name and tag in e.name]
+        return len(us) / calls, sum(us) / len(us) / 1e3 if us else 0.0
+
+    n_order, order_ms = of("engine_order_kernel")
+    return {"ops": len(dev) / calls, "order_launches": n_order,
+            "order_ms": order_ms, "tile_ms": of("engine_tile_kernel")[1],
+            "finish_ms": of("engine_finish")[1],
+            "names": sorted({e.name[:60] for e in dev})}
 
 
 def device_busy(port: Port, fn, warm: bool = False, top: int = 8):

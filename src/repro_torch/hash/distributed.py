@@ -290,9 +290,7 @@ class ShardedHasher:
                     "ragged input requires variable_length=True; pass a "
                     "dense (B, N) array for fixed-length hashing")
             lengths = ragged_lens
-        B, N = toks.shape
-        if spec.variable_length and lengths is None:
-            lengths = np.full(B, N, np.int64)
+        N = toks.shape[1]
         sharded = self
         if out_bits == 64 and spec.out_bits == 32:
             # widen the OUTPUT only: same key streams, full accumulators

@@ -163,7 +163,8 @@ class Hasher:
                 code = torch.as_tensor(lengths, device=self.device).reshape(-1).to(
                     torch.int32)
             out = kops.multihash(toks2, self.keys, code, family=spec.family,
-                                 mod_m=mod_m, width=W)
+                                 mod_m=mod_m, width=W,
+                                 ragged=lengths is not None)
             return out.reshape(*batch_shape, spec.n_hashes, 2)
         finally:
             if sp is not None:
@@ -245,7 +246,8 @@ class Hasher:
             out = kops.multihash(
                 as_tokens(toks, self.device), self._keys_for_width(n_req),
                 torch.from_numpy(lens).to(self.device), family=spec.family,
-                width=n_req).cpu().numpy().astype(np.uint64)
+                width=n_req, ragged=lengths is not None).cpu().numpy().astype(
+                    np.uint64)
             acc = (out[:, :, 0] << np.uint64(32)) | out[:, :, 1]
         if out_bits == 64:
             return acc

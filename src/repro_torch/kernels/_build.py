@@ -26,12 +26,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The fused K-hash engine's C signature; stats is null, or the u64 pairs of
-# lane and live column counts the kernels add to (`tracing.engine_counts`):
+# The fused K-hash engine's C signature; order is null, or the int32
+# scratch of the row order (`autotune.engine_order_words`); stats is null,
+# or the u64 pairs of lane and live column counts the kernels add to
+# (`tracing.engine_counts`):
 # int repro_<name>(tokens, keys, lens, out, part, B, N, W, K, ldk, pairwise,
-#                  split, mod_m, stats, stream)
+#                  split, mod_m, order, stats, stream)
 _ENGINE = ([_P] * 5 + [_I] * 4
-           + [ctypes.c_longlong, _I, _I, ctypes.c_ulonglong, _P, _P])
+           + [ctypes.c_longlong, _I, _I, ctypes.c_ulonglong, _P, _P, _P])
 # The integer single-hash kernel's C signature:
 # int repro_multilinear(tokens, keys, part, out, B, N, pairwise, stream)
 _SINGLE = [_P] * 4 + [_I] * 3 + [_P]

@@ -21,6 +21,17 @@ import functools
 ENGINE = {"int_threads": 128, "int_min_blocks": 4,
           "gf_threads": 256, "gf_min_blocks": 2}
 ENGINE_TILE = 32
+#: the widest rows the engine's row order takes (csrc/engine_tile.cuh,
+#: `launch_order`: W / 2 + 1 buckets, counted in shared memory)
+ENGINE_ORDER_MAX_WIDTH = 8192
+#: (row block, split) units that a carry-less call whose rows are in length
+#: order gives each resident block slot (`engine_split`'s `units`); the
+#: integer kernel keeps the split of the wave rule alone, since its
+#: partial sums cost the bytes it is bound by
+ENGINE_GF_ORDERED_UNITS = 2
+#: rows of the most row blocks one engine grid holds (65,535) over the rows
+#: of a block: a longer batch runs in row chunks of that many
+ENGINE_GRID_BLOCKS = 65535
 #: the fewest columns a split takes, so a split's staging and epilogue stay
 #: small beside its hashing, and the most (`csrc/engine_tile.cuh`
 #: ET_MAX_SPLIT: the integer tensor-core path's s32 sums stay exact).
@@ -65,20 +76,40 @@ def engine_fill(kernel: str, sms: int) -> int:
     return sms * _engine(kernel, "min_blocks")
 
 
+def engine_orders(B: int, W: int, rows: int, ragged: bool) -> bool:
+    """Whether an engine call over B rows of width W, `rows` rows per block,
+    puts its rows in length order (`csrc/engine_tile.cuh`): only where the
+    caller gave per-row lengths (`ragged`), the rows span more than one
+    column tile (below it every warp hashes one tile whatever its lengths)
+    and no more than `ENGINE_ORDER_MAX_WIDTH` columns, and more than one
+    block's rows (one block has no other rows to trade with)."""
+    return ragged and ENGINE_TILE < W <= ENGINE_ORDER_MAX_WIDTH and B > rows
+
+
+def engine_order_words(B: int, rows: int) -> int:
+    """int32 words of an ordered engine call's scratch: the order of its
+    longest row chunk."""
+    return min(B, ENGINE_GRID_BLOCKS * rows)
+
+
 @functools.lru_cache(maxsize=1024)
 def engine_split(B: int, W: int, rows: int, fill: int, tile: int = ENGINE_TILE,
-                 max_split: int = ENGINE_MAX_SPLIT) -> int:
+                 max_split: int = ENGINE_MAX_SPLIT, units: int = 0) -> int:
     """Columns per split of a fused multi-hash launch over B rows of width
     W, `rows` rows per block, on a card that `fill` blocks fill
     (`engine_fill`): all W (one split, the kernel runs the epilogue itself)
     when the row blocks alone fill the card; else the split count, up to
     the one that reaches `fill` blocks and with splits of at least
     `ENGINE_MIN_SPLIT` columns, whose waves of blocks take the least time
-    (waves / splits; the fewest splits on a tie). A split is a multiple of
-    the `tile` (the engine's 32 columns) and never more than `max_split`
-    columns. A second pass then combines the splits exactly
-    (`csrc/engine_tile.cuh`; `gf_single_split` for the carry-less
-    single-hash kernel)."""
+    (waves / splits; the fewest splits on a tie). With `units` (rows in
+    length order: `ENGINE_GF_ORDERED_UNITS` for the carry-less kernel), at
+    least the fewest splits that make `units` (row block, split) pairs for
+    each of the `fill` slots, within the same least split: the longest rows' blocks, which start first, are
+    then cut short enough that the rest of the card does not wait for
+    them. A split is a multiple of the `tile` (the engine's 32 columns) and
+    never more than `max_split` columns. A second pass then combines the
+    splits exactly (`csrc/engine_tile.cuh`; `gf_single_split` for the
+    carry-less single-hash kernel)."""
     row_blocks = max(1, -(-B // rows))
     most = max(1, min(-(-fill // row_blocks), W // ENGINE_MIN_SPLIT))
     best = 1
@@ -86,6 +117,9 @@ def engine_split(B: int, W: int, rows: int, fill: int, tile: int = ENGINE_TILE,
         # waves(s) / s < waves(best) / best
         if -(-s * row_blocks // fill) * best < -(-best * row_blocks // fill) * s:
             best = s
+    if units:
+        best = max(best, min(-(-units * fill // row_blocks),
+                             max(1, W // ENGINE_MIN_SPLIT)))
     splits = max(best, -(-W // max_split))
     cols = -(-W // splits)
     return max(tile, -(-cols // tile) * tile)
@@ -114,5 +148,6 @@ def gf_single_split(B: int, cols: int, sms: int, pairwise: bool = False) -> int:
 def nvcc_defines() -> list[str]:
     """The launch configurations as nvcc `-D` flags."""
     return ([f"-DET_{k.upper()}={v}" for k, v in ENGINE.items()]
+            + [f"-DEO_MAX_WIDTH={ENGINE_ORDER_MAX_WIDTH}"]
             + [f"-DSH_{k.upper()}={v}" for k, v in SINGLE.items()]
             + [f"-DGS_{k.upper()}={v}" for k, v in GF_SINGLE.items()])

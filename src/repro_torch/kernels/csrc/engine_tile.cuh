@@ -28,6 +28,19 @@
 // otherwise it writes its partial sums to part[split][k][b] and
 // engine_finish combines the splits and runs the epilogue.
 //
+// Row order. Given an `order`, the launch's rows go to lanes through it:
+// order[p] is the row at place p, and the places of each segment of
+// EO_SEG rows hold its rows sorted by kend, longest first
+// (engine_order_kernel, launched before the tile kernel). A warp then holds
+// 32 rows of nearly one kend, so it hashes little past its rows' ends (in
+// a shuffled batch of documents a warp of consecutive rows ran to its
+// longest row, 3.16 x the live columns), and the blocks that start first
+// hold the longest rows (of a segment; a call of up to EO_SEG rows is one
+// segment). The tokens are read
+// from, and the slots and partials written at, the row itself; only the
+// lane a row runs on changes, and + mod 2^64 and xor are exact in any
+// order. Without an order (null) place p holds row p.
+//
 // Counts. Given a non-null `stats` (the port's tracer is on), each warp
 // adds the lane columns it hashes in its split, 32 x (wend - cs), and the
 // live ones, the sum over its lanes of the row's tokens and sentinel inside
@@ -53,11 +66,47 @@
 #define ET_FULL 0xffffffffu
 #define ET_STAT_SLOTS 64          // pairs of counts (tracing.ENGINE_SLOTS)
 #define ET_STAT_STRIDE 32         // u64 from one pair to the next
+// Row order: threads of an ordering block, the rows it orders (a segment:
+// a row's place in it fits 16 bits) and the codes a thread reads at a time.
+#define EO_THREADS 1024
+#define EO_SEG 65536
+#define EO_UNROLL 32
+// Set by kernels/autotune.py::ENGINE_ORDER_MAX_WIDTH: the widest row
+// ordered (W / 2 + 1 buckets, counted in shared memory).
+#if !defined(EO_MAX_WIDTH)
+#error "EO_MAX_WIDTH: build with repro_torch/kernels/_build.py"
+#endif
 
 // Key row length for KC functions, rounded up to an even count so a
 // column's keys start 16-byte aligned.
 template <int KC>
 __host__ __device__ constexpr int et_kcp() { return (KC + 1) & ~1; }
+
+// A row under its length code (repro/kernels/multihash.py::_mask_tile):
+// code >= 0 is a variable-length row of lm = code tokens and the sentinel
+// 1 at lm; code < 0 a fixed-length row of lm = -code-1. It loads ld tokens,
+// ends at `end` (its tokens and sentinel) and hashes key lanes below kend =
+// even(end), at most W.
+struct EtRow {
+  int ld, sent, end, kend;
+};
+__device__ __forceinline__ EtRow et_row(int code, int N, int W) {
+  const bool is_var = code >= 0;
+  const int lm = is_var ? code : -code - 1;
+  EtRow r;
+  r.end = lm + (is_var ? 1 : 0);
+  r.ld = min(lm, N);
+  r.sent = (is_var && lm < W) ? lm : -1;
+  r.kend = min(r.end + (r.end & 1), W);
+  return r;
+}
+
+// The row order's buckets: one for each kend a row of width W can have (the
+// even ones and W), bucket (kend + 1) / 2.
+__host__ __device__ constexpr int eo_buckets(int W) { return (W + 1) / 2 + 1; }
+__device__ __forceinline__ int eo_bucket(int code, int W) {
+  return (et_row(code, 0, W).kend + 1) >> 1;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -122,16 +171,113 @@ __host__ __device__ constexpr size_t engine_smem() {
          et_tokens_bytes<F::THREADS>();
 }
 
+// The row order of B rows: engine_order_kernel, one plain launch of a
+// block for each segment of EO_SEG rows (block g owns rows [g EO_SEG,
+// g EO_SEG + EO_SEG)), each segment ordered on its own, so no block waits
+// on another:
+// 1. the block counts its rows in each bucket (shared atomics);
+// 2. it scans the counts, longest bucket first, into each bucket's first
+//    place;
+// 3. it places its rows in shared memory, 16 bits a row, each row's place
+//    taken by a shared atomic on its bucket (rows of one bucket take their
+//    places in any order);
+// 4. it writes the places out in order, order[g EO_SEG + place] = row, in
+//    whole lines (a row placed straight into global memory costs a 32-byte
+//    sector of its own, and one SM writes them one at a time).
+// A thread reads EO_UNROLL codes, EO_THREADS apart, before it uses one (the
+// block waits on memory, not on work). Nothing needs memory zeroed before
+// it, and it needs no grid barrier. One SM orders a segment: 24 us at
+// 65,536 rows of width 2,050 on an H100. A cooperative launch of 32 blocks
+// sharing their counts across two grid barriers took 10.6 us there, but
+// then the host's time a call, not the card's, set the pace of such
+// batches, and the card idled more (PERF.md). F only names the
+// kernel after its engine.
+
+// Inclusive sum of x over the lanes up to this one.
+__device__ __forceinline__ int eo_scan(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(ET_FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// Shared memory of an ordering block for rows of width W: the buckets'
+// counts, then the segment's places.
+__host__ __device__ constexpr size_t eo_smem(int W) {
+  return eo_buckets(W) * sizeof(int) + EO_SEG * sizeof(unsigned short);
+}
+
+template <class F>
+__global__ void __launch_bounds__(EO_THREADS)
+engine_order_kernel(const int* __restrict__ lens, int* __restrict__ order, int B, int W) {
+  static_assert(EO_THREADS == 32 * 32, "one warp scans the warps' sums");
+  extern __shared__ int s_next[];  // [bucket]: counts, then the next place
+  __shared__ int s_warp[32];
+  const int NB = eo_buckets(W);
+  unsigned short* s_ord = (unsigned short*)(s_next + NB);  // [place]: row - base
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int base = blockIdx.x * EO_SEG, n = min(EO_SEG, B - base);
+  const int* l = lens + base;
+  for (int v = tid; v < NB; v += EO_THREADS) s_next[v] = 0;
+  __syncthreads();
+  for (int i0 = tid; i0 < n; i0 += EO_UNROLL * EO_THREADS) {
+    int c[EO_UNROLL];
+#pragma unroll
+    for (int j = 0; j < EO_UNROLL; ++j)
+      c[j] = i0 + j * EO_THREADS < n ? l[i0 + j * EO_THREADS] : 0;
+#pragma unroll
+    for (int j = 0; j < EO_UNROLL; ++j)
+      if (i0 + j * EO_THREADS < n) atomicAdd(&s_next[eo_bucket(c[j], W)], 1);
+  }
+  __syncthreads();
+  // Buckets longest first: thread t takes the C buckets NB-1-tC, ... down;
+  // the threads' sums are scanned across the block.
+  const int C = (NB + EO_THREADS - 1) / EO_THREADS;
+  const int q0 = min(NB, tid * C), q1 = min(NB, q0 + C);
+  int run = 0;
+  for (int q = q0; q < q1; ++q) run += s_next[NB - 1 - q];
+  const int incl = eo_scan(run, lane);
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = s_warp[lane];
+    s_warp[lane] = eo_scan(w, lane) - w;
+  }
+  __syncthreads();
+  int start = s_warp[warp] + incl - run;
+  for (int q = q0; q < q1; ++q) {
+    const int v = NB - 1 - q, k = s_next[v];
+    s_next[v] = start;
+    start += k;
+  }
+  __syncthreads();
+  for (int i0 = tid; i0 < n; i0 += EO_UNROLL * EO_THREADS) {
+    int c[EO_UNROLL];
+#pragma unroll
+    for (int j = 0; j < EO_UNROLL; ++j)
+      c[j] = i0 + j * EO_THREADS < n ? l[i0 + j * EO_THREADS] : 0;
+#pragma unroll
+    for (int j = 0; j < EO_UNROLL; ++j)
+      if (i0 + j * EO_THREADS < n)
+        s_ord[atomicAdd(&s_next[eo_bucket(c[j], W)], 1)] =
+            (unsigned short)(i0 + j * EO_THREADS);
+  }
+  __syncthreads();
+  for (int p = tid; p < n; p += EO_THREADS) order[base + p] = base + s_ord[p];
+}
+
 // One launch hashes K <= KC functions (keys, out and part already offset to
 // them; Kt functions make a row of out). A block of F::THREADS threads owns
-// as many rows, one per lane.
+// as many places of the row order, one per lane.
 template <class F, int KC, bool PAIRWISE, bool MMA>
 __global__ void __launch_bounds__(F::THREADS, F::MIN_BLOCKS)
 engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
-                   const int* __restrict__ lens, long long* __restrict__ out,
-                   u64* __restrict__ part, int B, int N, int W, int K, int Kt,
-                   long long ldk, int split, int vec, u64 mod_m, u64 mu,
-                   u64* __restrict__ stats) {
+                   const int* __restrict__ lens, const int* __restrict__ order,
+                   long long* __restrict__ out, u64* __restrict__ part, int B,
+                   int N, int W, int K, int Kt, long long ldk, int split, int vec,
+                   u64 mod_m, u64 mu, u64* __restrict__ stats) {
   constexpr int T = F::THREADS, WARPS = T / 32;
   constexpr int KCP = et_kcp<KC>();
   constexpr size_t TABLE = F::template table_bytes<KC, PAIRWISE, MMA>();
@@ -141,28 +287,25 @@ engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
   static_assert(ET_TILE % TC == 0 && TC % 4 == 0, "tables tile the tile");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_end[WARPS];
-  __shared__ int2 s_row[T];  // each row's (tokens to load, sentinel or -1)
+  // each lane's (tokens to load, sentinel or -1, row, -)
+  __shared__ int4 s_row[T];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   u64* skeys = (u64*)smem;  // [stage][column][KCP]
   u64* table = (u64*)(smem + et_keys_bytes<KC>());
   u32* wtok = (u32*)(smem + et_keys_bytes<KC>() + TABLE) +
               warp * (ET_STAGES * 32 * ET_STRIDE);  // [stage][row][column]
 
-  // This lane's row under its length code (repro/kernels/multihash.py::
-  // _mask_tile): code >= 0 is a variable-length row of lm = code tokens and
-  // the sentinel 1 at lm; code < 0 a fixed-length row of lm = -code-1.
-  // It loads ld tokens and hashes key lanes below kend = even(lm + is_var).
-  const int b = blockIdx.y * T + tid;
-  // past the batch: a dead row, never written
-  int ld = 0, sent = -1, kend = 0, end = 0;
-  if (b < B) {
-    const int code = lens[b];
-    const bool is_var = code >= 0;
-    const int lm = is_var ? code : -code - 1;
-    end = lm + (is_var ? 1 : 0);
-    ld = min(lm, N);
-    sent = (is_var && lm < W) ? lm : -1;
-    kend = min(end + (end & 1), W);
+  // This lane's place p in the row order and the row b there (`et_row`).
+  const int p = blockIdx.y * T + tid;
+  // past the batch: a dead lane, never written
+  int b = 0, ld = 0, sent = -1, kend = 0, end = 0;
+  if (p < B) {
+    b = order != nullptr ? order[p] : p;
+    const EtRow r = et_row(lens[b], N, W);
+    ld = r.ld;
+    sent = r.sent;
+    end = r.end;
+    kend = r.kend;
   }
   const int cs = blockIdx.x * split;
   const int ce = min(W, cs + split);
@@ -178,7 +321,7 @@ engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
       atomicAdd(c + 1, (unsigned long long)live);
     }
   }
-  s_row[tid] = make_int2(ld, sent);
+  s_row[tid] = make_int4(ld, sent, b, 0);
   if (lane == 0) s_end[warp] = wend;
   __syncthreads();
   int bend = cs;
@@ -187,24 +330,21 @@ engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
 
   // Issue the loads of tile c0 into ring slot `slot`: this warp's tokens
   // (while it has live columns there) and the block's share of the keys.
-  // Tokens go in 16-byte chunks, lane l taking chunk l % 8 of rows l / 8,
-  // l / 8 + 4, ...: a chunk wholly below its row's ld is copied (16 bytes
-  // when `vec`: rows 16-byte aligned), one wholly past it with no sentinel
-  // is stored as 0, and the one chunk that straddles ld or holds the
-  // sentinel goes token by token.
-  const int2* wcode = s_row + warp * 32;
-  const u32* wsrc = tokens + (size_t)(blockIdx.y * T + warp * 32 + (lane >> 3)) * N +
-                    (lane & 7) * 4;
+  // Tokens go in 16-byte chunks, lane l taking chunk l % 8 of the warp's
+  // lanes l / 8, l / 8 + 4, ... (each read from its row): a chunk wholly
+  // below its row's ld is copied (16 bytes when `vec`: rows 16-byte
+  // aligned), one wholly past it with no sentinel is stored as 0, and the
+  // one chunk that straddles ld or holds the sentinel goes token by token.
+  const int4* wcode = s_row + warp * 32;
   auto prefetch = [&](int c0, int slot) {
     if (c0 < wend) {
       u32* dst = wtok + slot * (32 * ET_STRIDE) + (lane >> 3) * ET_STRIDE + (lane & 7) * 4;
-      const u32* src = wsrc + c0;
       const int c = c0 + (lane & 7) * 4;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int2 rc = wcode[i * 4 + (lane >> 3)];
+        const int4 rc = wcode[i * 4 + (lane >> 3)];
         u32* d = dst + i * 4 * ET_STRIDE;
-        const u32* g = src + (size_t)i * 4 * N;
+        const u32* g = tokens + (size_t)rc.z * N + c;
         if (vec && c + 4 <= rc.x) {
           cp_async16(d, g);
         } else if (c >= rc.x && (unsigned)(rc.y - c) >= 4u) {
@@ -299,7 +439,7 @@ engine_tile_kernel(const u32* __restrict__ tokens, const u64* __restrict__ keys,
     for (int kk = 0; kk < KC; ++kk) stash[kk * 32 + lane] = acc[kk];
   }
   __syncwarp();
-  if (b >= B) return;
+  if (p >= B) return;
 #pragma unroll 1
   for (int k = 0; k < K; ++k) {
     const u64 v = stash[k * 32 + lane];
@@ -330,10 +470,10 @@ engine_finish(const u64* __restrict__ part, const u64* __restrict__ keys,
 // when another library holding the same kernels is loaded in the process.
 template <class F, int KC, bool PAIRWISE, bool MMA>
 static cudaError_t launch_engine_kc(const u32* t, const u64* k, const int* l,
-                                    long long* o, u64* p, int B, int N, int W,
-                                    int K, int Kt, long long ldk, int split,
-                                    int vec, u64 mod_m, u64 mu, u64* stats,
-                                    dim3 grid, cudaStream_t s) {
+                                    const int* ord, long long* o, u64* p, int B,
+                                    int N, int W, int K, int Kt, long long ldk,
+                                    int split, int vec, u64 mod_m, u64 mu,
+                                    u64* stats, dim3 grid, cudaStream_t s) {
   constexpr size_t smem = engine_smem<F, KC, PAIRWISE, MMA>();
   // The opt-in above 48 KB, once per device (not per call: a launch then
   // enqueues nothing else, so it can be captured in a CUDA graph).
@@ -348,26 +488,50 @@ static cudaError_t launch_engine_kc(const u32* t, const u64* k, const int* l,
     granted[dev & 63] = true;
   }
   engine_tile_kernel<F, KC, PAIRWISE, MMA><<<grid, F::THREADS, smem, s>>>(
-      t, k, l, o, p, B, N, W, K, Kt, ldk, split, vec, mod_m, mu, stats);
+      t, k, l, ord, o, p, B, N, W, K, Kt, ldk, split, vec, mod_m, mu, stats);
   return cudaSuccess;
 }
 
 // The register chunk for kn functions: 1, 3 or 9.
 template <class F, bool PAIRWISE>
 static cudaError_t launch_engine_chunk(const u32* t, const u64* k, const int* l,
-                                       long long* o, u64* p, int B, int N, int W,
-                                       int kn, int Kt, long long ldk, int split,
-                                       int vec, u64 mod_m, u64 mu, u64* stats,
-                                       dim3 grid, cudaStream_t s) {
+                                       const int* ord, long long* o, u64* p, int B,
+                                       int N, int W, int kn, int Kt, long long ldk,
+                                       int split, int vec, u64 mod_m, u64 mu,
+                                       u64* stats, dim3 grid, cudaStream_t s) {
   constexpr bool MMA = F::HAS_MMA && !PAIRWISE;
   if (kn <= 1)
-    return launch_engine_kc<F, 1, PAIRWISE, MMA>(t, k, l, o, p, B, N, W, kn, Kt, ldk,
-                                                 split, vec, mod_m, mu, stats, grid, s);
+    return launch_engine_kc<F, 1, PAIRWISE, MMA>(t, k, l, ord, o, p, B, N, W, kn, Kt,
+                                                 ldk, split, vec, mod_m, mu, stats,
+                                                 grid, s);
   if (kn <= 3)
-    return launch_engine_kc<F, 3, PAIRWISE, MMA>(t, k, l, o, p, B, N, W, kn, Kt, ldk,
-                                                 split, vec, mod_m, mu, stats, grid, s);
-  return launch_engine_kc<F, 9, PAIRWISE, MMA>(t, k, l, o, p, B, N, W, kn, Kt, ldk,
-                                               split, vec, mod_m, mu, stats, grid, s);
+    return launch_engine_kc<F, 3, PAIRWISE, MMA>(t, k, l, ord, o, p, B, N, W, kn, Kt,
+                                                 ldk, split, vec, mod_m, mu, stats,
+                                                 grid, s);
+  return launch_engine_kc<F, 9, PAIRWISE, MMA>(t, k, l, ord, o, p, B, N, W, kn, Kt,
+                                               ldk, split, vec, mod_m, mu, stats,
+                                               grid, s);
+}
+
+// The row order of B rows of width W (codes l) into ord[0, B): a block for
+// each EO_SEG rows (engine_order_kernel).
+template <class F>
+static cudaError_t launch_order(const int* l, int* ord, int B, int W, cudaStream_t s) {
+  // The opt-in above 48 KB, once per device (as launch_engine_kc's).
+  static bool granted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (!granted[dev & 63]) {
+    e = cudaFuncSetAttribute(engine_order_kernel<F>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)eo_smem(EO_MAX_WIDTH));
+    if (e != cudaSuccess) return e;
+    granted[dev & 63] = true;
+  }
+  engine_order_kernel<F><<<(B + EO_SEG - 1) / EO_SEG, EO_THREADS, eo_smem(W), s>>>(
+      l, ord, B, W);
+  return cudaSuccess;
 }
 
 // Dynamic shared memory of one block of the launch for K functions (the
@@ -389,23 +553,31 @@ size_t engine_smem_bytes(int K, int pairwise) {
 // ceil(W / split) > 1 (the wrapper allocates it; the passes reuse it in
 // stream order). Rows go on grid.y, which holds at most 65,535 blocks, so
 // a batch of more rows runs in chunks of that many row blocks, one after
-// another on the stream: one call covers any B. The epilogue's reciprocal
+// another on the stream: one call covers any B. With `order` (null, or
+// scratch of min(B, 65,535 x F::THREADS) ints; W at most EO_MAX_WIDTH)
+// each row chunk is first put in length order, segment by segment of
+// EO_SEG rows (launch_order, one kernel), which every pass of the chunk
+// runs through;
+// rows, slots and partials stay where they are. The epilogue's reciprocal
 // of mod_m is taken here, on the host. `stats`, null or the tracer's
 // ET_STAT_SLOTS x ET_STAT_STRIDE u64 counts, goes to every tile launch, so
-// each pass and row chunk counts its own columns. Returns the first CUDA error (cudaGetLastError()
-// after the launches).
+// each pass and row chunk counts its own columns. Returns the first CUDA
+// error (cudaGetLastError() after the launches).
 template <class F>
 int launch_engine(const void* tokens, const void* keys, const void* lens,
                   void* out, void* part, int B, int N, int W, int K,
                   long long ldk, int pairwise, int split, u64 mod_m,
-                  void* stats, void* stream) {
+                  void* order, void* stats, void* stream) {
   if (F::HAS_MMA && !pairwise && split > ET_MAX_SPLIT)
     return (int)cudaErrorInvalidValue;  // the s32 sums could overflow
+  if (order != nullptr && W > EO_MAX_WIDTH)
+    return (int)cudaErrorInvalidValue;  // the buckets would not fit
   const int S = W > split ? (W + split - 1) / split : 1;
   constexpr int MAX_ROWS = 65535 * F::THREADS;
   cudaStream_t s = (cudaStream_t)stream;
   u64* p = (u64*)part;
   u64* c = (u64*)stats;
+  int* ord = (int*)order;
   const u64 mu = mod_m ? ~0ull / mod_m : 0;
   for (int r0 = 0; r0 < B; r0 += MAX_ROWS) {
     const int bc = min(MAX_ROWS, B - r0);
@@ -413,15 +585,19 @@ int launch_engine(const void* tokens, const void* keys, const void* lens,
     const u32* t = (const u32*)tokens + (size_t)r0 * N;
     const int* l = (const int*)lens + r0;
     const int vec = ((uintptr_t)t % 16 == 0) && N % 4 == 0;
+    if (ord != nullptr) {
+      const cudaError_t e = launch_order<F>(l, ord, bc, W, s);
+      if (e != cudaSuccess) return (int)e;
+    }
     for (int k0 = 0; k0 < K; k0 += 9) {
       const int kn = min(9, K - k0);
       const u64* k = (const u64*)keys + (size_t)k0 * ldk;
       long long* o = (long long*)out + ((size_t)r0 * K + k0) * 2;
       const cudaError_t e =
-          pairwise ? launch_engine_chunk<F, true>(t, k, l, o, p, bc, N, W, kn, K, ldk,
-                                                  split, vec, mod_m, mu, c, grid, s)
-                   : launch_engine_chunk<F, false>(t, k, l, o, p, bc, N, W, kn, K, ldk,
-                                                   split, vec, mod_m, mu, c, grid, s);
+          pairwise ? launch_engine_chunk<F, true>(t, k, l, ord, o, p, bc, N, W, kn, K,
+                                                  ldk, split, vec, mod_m, mu, c, grid, s)
+                   : launch_engine_chunk<F, false>(t, k, l, ord, o, p, bc, N, W, kn, K,
+                                                   ldk, split, vec, mod_m, mu, c, grid, s);
       if (e != cudaSuccess) return (int)e;
       if (S > 1) {
         const long long n = (long long)bc * kn;

@@ -17,8 +17,14 @@
 // u64, far more than the 4 bytes of a token cost. Design (engine_tile.cuh):
 // a lane owns a row and its K sums, tokens are staged in shared memory with
 // the length code applied, and no lanes are reduced across (xor is exact in
-// any order). The key at column c is the same for every row, so the block
-// turns it into a 4-bit window table once per tile, shared by its 256 rows:
+// any order). Where the caller gives per-row lengths the rows run in length
+// order, longest first, so a warp's products stop near its rows' own ends
+// (in a shuffled batch of documents a warp of consecutive rows ran to its
+// longest, 3.16 x the live columns); the longest rows' blocks then start
+// first and their columns are split (autotune.ENGINE_GF_ORDERED_UNITS), so
+// no SM is left with them at the end. The key at column c is the same for
+// every row, so the block turns it into a 4-bit window table once per
+// tile, shared by its 256 rows:
 // T[v] = clmul(key, v) for v < 16 (16 u64 of at most 35 bits, 128 bytes, so
 // 32 lanes reading any nibbles of one table hit 32 banks without conflict).
 // A product is then eight lookups in Horner form, r = T[n7], r = (r << 4) ^
@@ -126,10 +132,10 @@ extern "C" int repro_gf_multihash(const void* tokens, const void* keys,
                                   const void* lens, void* out, void* part,
                                   int B, int N, int W, int K, long long ldk,
                                   int pairwise, int split,
-                                  unsigned long long mod_m, void* stats,
-                                  void* stream) {
+                                  unsigned long long mod_m, void* order,
+                                  void* stats, void* stream) {
   return launch_engine<GfEngine>(tokens, keys, lens, out, part, B, N, W, K,
-                                 ldk, pairwise, split, mod_m, stats, stream);
+                                 ldk, pairwise, split, mod_m, order, stats, stream);
 }
 
 extern "C" long long repro_gf_multihash_smem(int K, int pairwise) {

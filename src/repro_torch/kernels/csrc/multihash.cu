@@ -161,9 +161,9 @@ extern "C" int repro_multihash(const void* tokens, const void* keys,
                                const void* lens, void* out, void* part, int B,
                                int N, int W, int K, long long ldk, int pairwise,
                                int split, unsigned long long mod_m,
-                               void* stats, void* stream) {
+                               void* order, void* stats, void* stream) {
   return launch_engine<IntEngine>(tokens, keys, lens, out, part, B, N, W, K,
-                                  ldk, pairwise, split, mod_m, stats, stream);
+                                  ldk, pairwise, split, mod_m, order, stats, stream);
 }
 
 extern "C" long long repro_multihash_smem(int K, int pairwise) {

@@ -33,8 +33,9 @@ def reset_count() -> None:
 
 
 def gf_multihash(tokens, keys, lens, *, family="gf_multilinear",
-                 mod_m=None, width=None):
-    """K carry-less hashes of every row of `tokens` -> (B, K, 2) int64 slots."""
+                 mod_m=None, width=None, ragged=False):
+    """K carry-less hashes of every row of `tokens` -> (B, K, 2) int64 slots.
+    `ragged`: the caller gave per-row lengths (`multihash.launch_engine`)."""
     if tokens.device.type == "cpu":
         return ref.gf_multihash_ref(tokens, keys, lens, family=family,
                                     mod_m=mod_m, width=width)
@@ -43,6 +44,7 @@ def gf_multihash(tokens, keys, lens, *, family="gf_multilinear",
     W = ref.engine_shapes(tokens, keys, lens, width, family)[3]
     if family not in ref.GF_FAMILIES:
         raise ValueError(f"{family!r} is not a carry-less engine family")
-    out = launch_engine("gf_multihash", tokens, keys, lens, family, mod_m, W)
+    out = launch_engine("gf_multihash", tokens, keys, lens, family, mod_m, W,
+                        ragged)
     _LAUNCHES.n += int(out.shape[0] > 0)
     return out

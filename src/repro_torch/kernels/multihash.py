@@ -9,7 +9,8 @@ A CUDA tensor launches the kernel (and adds one to `launch_count()`, the
 counter `launch.multihash` of `repro_torch.tracing`); a CPU tensor runs the
 plain version `ref.multihash_ref`. Nothing else falls back. While tracing
 is on, `launch_engine` of either engine adds the bytes of its slots and
-split partials to `engine.slot_bytes` and hands the kernels the card's
+split partials to `engine.slot_bytes`, counts its length-ordered calls in
+`engine.ordered_calls` and hands the kernels the card's
 `engine.lane_columns` / `engine.live_columns` buffer.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ from . import _build, autotune, ref
 
 _LAUNCHES = tracing.counter("launch.multihash", always=True)
 _SLOT_BYTES = tracing.counter("engine.slot_bytes")
+_ORDERED = tracing.counter("engine.ordered_calls")
 
 
 def launch_count() -> int:
@@ -38,8 +40,9 @@ def reset_count() -> None:
 
 
 def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
-              width=None):
-    """K integer hashes of every row of `tokens` -> (B, K, 2) int64 slots."""
+              width=None, ragged=False):
+    """K integer hashes of every row of `tokens` -> (B, K, 2) int64 slots.
+    `ragged`: the caller gave per-row lengths (`launch_engine`)."""
     if tokens.device.type == "cpu":
         return ref.multihash_ref(tokens, keys, lens, family=family,
                                  mod_m=mod_m, width=width)
@@ -48,7 +51,8 @@ def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
     W = ref.engine_shapes(tokens, keys, lens, width, family)[3]
     if family not in ref.INT_FAMILIES:
         raise ValueError(f"{family!r} is not an integer engine family")
-    out = launch_engine("multihash", tokens, keys, lens, family, mod_m, W)
+    out = launch_engine("multihash", tokens, keys, lens, family, mod_m, W,
+                        ragged)
     _LAUNCHES.n += int(out.shape[0] > 0)
     return out
 
@@ -58,40 +62,69 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_of(name: str, B: int, W: int, device) -> int:
+def split_of(name: str, B: int, W: int, device, ordered: bool = False) -> int:
     """Columns per split that `launch_engine` gives engine kernel `name`
     for B rows of width W on CUDA `device` (`autotune.engine_split`, filled
-    to the device's SMs)."""
-    return autotune.engine_split(B, W, autotune.engine_rows(name),
-                                 autotune.engine_fill(name, _sm_count(device)))
+    to the device's SMs; `ordered`: rows in length order)."""
+    return autotune.engine_split(
+        B, W, autotune.engine_rows(name),
+        autotune.engine_fill(name, _sm_count(device)),
+        units=autotune.ENGINE_GF_ORDERED_UNITS
+        if ordered and name == "gf_multihash" else 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(name: str, B: int, W: int, K: int, ragged: bool, device) -> tuple:
+    """(ordered, columns per split, int64 words of split partials, int64
+    words of scratch) of an engine call: whether its rows run in length
+    order (`autotune.engine_orders`), its split (`split_of`), and one
+    scratch for the partials (where split) and the order."""
+    rows = autotune.engine_rows(name)
+    ordered = autotune.engine_orders(B, W, rows, ragged)
+    split = split_of(name, B, W, device, ordered)
+    splits = autotune.engine_splits(W, split)
+    n_part = splits * K * B if splits > 1 else 0
+    n_order = autotune.engine_order_words(B, rows) if ordered else 0
+    return ordered, split, n_part, n_part + -(-n_order // 2)
 
 
 def launch_engine(name: str, tokens, keys, lens, family: str, mod_m,
-                  W: int) -> torch.Tensor:
+                  W: int, ragged: bool = False) -> torch.Tensor:
     """Launch engine kernel `name` on validated CUDA operands -> (B, K, 2)
-    int64 slots. Above one column split (`autotune.engine_split`) the
-    per-split partial sums go to a scratch tensor and the kernel's second
-    pass combines them; more rows than one grid holds (65,535 row blocks)
-    run in row chunks inside the C launcher. It is one call of the C
-    launcher either way. While tracing is on it counts the bytes of `out`
-    and of `part` (where it is used) in `engine.slot_bytes`, and the kernels
-    add their lane and live columns to the card's `tracing.engine_counts`;
-    off, they get a null pointer."""
+    int64 slots. Where the caller gave per-row lengths (`ragged`) and
+    `autotune.engine_orders` takes the shape, the rows run in length order:
+    an ordering kernel sorts the places of the call's rows by the columns
+    each hashes, longest first, in segments of 65,536 rows (one a call at
+    the docs shape), and the tile kernel gives each lane the row at its
+    place, so a warp's 32 rows end close together. Above one column split
+    (`autotune.engine_split`) the per-split partial sums go to scratch and
+    the kernel's second pass combines them; more rows than one grid holds
+    (65,535 row blocks) run in row chunks inside the C launcher. It is one
+    call of the C launcher either way,
+    with one scratch tensor for the partials and the order. While tracing
+    is on it counts the bytes of `out` and of the partials (where split) in
+    `engine.slot_bytes` and an ordered call in `engine.ordered_calls`, and
+    the kernels add their lane and live columns to the card's
+    `tracing.engine_counts`; off, they get a null pointer."""
     B, N = tokens.shape
     K = keys.shape[0]
     plan = as_plan(mod_m)
     out = torch.empty((B, K, 2), dtype=torch.int64, device=tokens.device)
     if B == 0:
         return out
-    split = split_of(name, B, W, tokens.device)
-    splits = autotune.engine_splits(W, split)
-    part = (torch.empty((splits, K, B), dtype=torch.int64, device=tokens.device)
-            if splits > 1 else out)  # unused with one split
+    ordered, split, n_part, n_scratch = _plan(name, B, W, K, ragged, tokens.device)
+    scratch = part = order = None
+    if n_scratch:
+        scratch = torch.empty(n_scratch, dtype=torch.int64, device=tokens.device)
+        part = scratch.data_ptr()
+        order = part + 8 * n_part if ordered else None
     stats = None
     if tracing.ON:
-        _SLOT_BYTES.n += 8 * (out.numel() + (part.numel() if splits > 1 else 0))
+        _SLOT_BYTES.n += 8 * (out.numel() + n_part)
+        _ORDERED.n += ordered
         stats = tracing.engine_counts(tokens.device)
-    _build.launch(name, tokens.device, tokens, keys, lens, out, part, B, N, W,
-                  K, keys.stride(0), int(family in ref.PAIRWISE), split,
-                  0 if plan is None else plan.m, stats)
+    _build.launch(name, tokens.device, tokens, keys, lens, out,
+                  out if part is None else part, B, N, W, K, keys.stride(0),
+                  int(family in ref.PAIRWISE), split,
+                  0 if plan is None else plan.m, order, stats)
     return out

@@ -47,19 +47,22 @@ def launch_count() -> int:
 
 
 def multihash(tokens, keys, lens, *, family="multilinear", mod_m=None,
-              width=None):
+              width=None, ragged=False):
     """(B, N) int32 tokens x (K, >= W+1) int64 keys -> (B, K, 2) int64 slots.
 
     See `kernels.ref` for the operand layout and the slot contract.
+    `ragged`: the caller gave per-row lengths, so the engine may run the
+    rows in length order (`multihash.launch_engine`); the slots are the
+    same either way.
     """
     _DISPATCHES.n += 1
     sp = tracing.begin("launch.multihash") if tracing.ON else None
     try:
         if FAMILIES[family].gf:
             return gfmh.gf_multihash(tokens, keys, lens, family=family,
-                                     mod_m=mod_m, width=width)
+                                     mod_m=mod_m, width=width, ragged=ragged)
         return mhk.multihash(tokens, keys, lens, family=family, mod_m=mod_m,
-                             width=width)
+                             width=width, ragged=ragged)
     finally:
         if sp is not None:
             tracing.end(sp)

@@ -42,6 +42,7 @@ The spans and counters of the hash path:
     launch.dispatch       engine dispatches (kernels.ops.launch_count)
     launch.<kernel>       CUDA launches of each kernel wrapper
     engine.slot_bytes     bytes of the engine's slots and split partials
+    engine.ordered_calls  engine calls whose rows ran in length order
     engine.lane_columns   lane columns the engine hashed
     engine.live_columns   of those, columns inside the rows
     tracing.dropped       spans that found their storage full

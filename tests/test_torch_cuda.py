@@ -141,13 +141,13 @@ def test_tensor_core_sums_exact_at_the_widest_split(cuda, split, all_ones):
     out = torch.empty((B, K, 2), dtype=torch.int64, device=cuda)
     part = torch.empty((splits, K, B), dtype=torch.int64, device=cuda)
     _build.launch("multihash", cuda, toks, keys, lens, out, part, B, N, W, K,
-                  keys.stride(0), 0, split, 0, None)
+                  keys.stride(0), 0, split, 0, None, None)
     torch.cuda.synchronize()
     assert torch.equal(out, ref.multihash_ref(toks, keys, lens, width=W))
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch("multihash", cuda, toks, keys, lens, out, part, B, N, W,
                       K, keys.stride(0), 0, autotune.ENGINE_MAX_SPLIT + 32, 0,
-                      None)
+                      None, None)
 
 
 @pytest.mark.parametrize("family", ENGINE_FAMILIES)
