@@ -5,6 +5,9 @@ process (set-up is paid once a seed, not once a process).
     python hashbench/control.py --workload <cell> --seconds 1 \
         --seeds 11 12 13 ... --fault-seeds 21 22 23 --faults control answer half
 
+A cell whose configuration names a runner (a training cell) takes its
+faults from `model_faults.py`, the others from `faults.py`.
+
 Prints one JSON line a run ({"kind", "seed", "correct", "checks"}) and, last,
 each number's lower reading (the largest over the sound runs) and each
 fault's smallest reading. The benchmark's own runs do not run this.
@@ -22,7 +25,7 @@ import json  # noqa: E402
 
 import torch  # noqa: E402
 
-from hashbench.faults import KINDS, plant  # noqa: E402
+from hashbench import faults, model_faults  # noqa: E402
 from hashbench.harness import load_cell, run_cell  # noqa: E402
 
 
@@ -32,11 +35,13 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=1.0)
     p.add_argument("--seeds", type=int, nargs="*", default=[])
     p.add_argument("--fault-seeds", type=int, nargs="*", default=[])
-    p.add_argument("--faults", nargs="*", default=["control"], choices=KINDS)
+    p.add_argument("--faults", nargs="*", default=["control"],
+                   choices=sorted(set(faults.KINDS) | set(model_faults.KINDS)))
     args = p.parse_args(argv)
     cell = load_cell(args.workload)
     device = torch.device("cuda", 0)
-    keep = cell.traffic["check"]["batches"]
+    plant = (model_faults if "runner" in cell.config else faults).plant
+    keep = cell.traffic["check"]["batches"] if "check" in cell.traffic else 1
     readings: dict = {}
     runs = [("sound", s) for s in args.seeds]
     runs += [(k, s) for k in args.faults for s in args.fault_seeds]

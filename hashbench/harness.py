@@ -22,6 +22,10 @@ operation in it belongs to a call made in it. The host's time in each call
 is read on the host clock in the untraced part before it. The line carries
 the cell's per-layer metrics, each read by `metrics/<name>.py` (every
 per-layer metric of `BENCHMARK.json` lists its cells), and the breakdown.
+
+A configuration that names a runner (`"runner": "train_step"`) is another
+kind of cell: `runners/<runner>.py` runs it under the same arguments and
+returns the same result object.
 """
 from __future__ import annotations
 
@@ -215,7 +219,11 @@ def check(cell: Cell, seed: int, pool, got: list, prog_keys: torch.Tensor,
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float, min_calls: int = 0,
              warm_calls: "int | None" = None) -> dict:
-    """One run of `cell`; returns the result line's object."""
+    """One run of `cell`; returns the result line's object. A configuration
+    that names a runner is run by `runners/<runner>.py`."""
+    if "runner" in cell.config:
+        runner = importlib.import_module(f"hashbench.runners.{cell.config['runner']}")
+        return runner.run(cell, seed, seconds, trace, device, t_start, min_calls)
     Hasher, HashSpec, launch_count = program()
     cfg, tr = cell.config, cell.traffic
     K, m = cfg["n_hashes"], cfg["modulus"]
@@ -253,25 +261,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     loop = Loop(call, pool.batches, depth, keep, seed, cuda)
     launches0 = launch_count()
-    t0 = time.perf_counter()
-    prof = None
-    if not trace:
-        loop.run(t0 + seconds, min_calls)
-    else:
-        traced_s = min(TRACE_SECONDS, seconds / 2)
-        loop.run(t0 + seconds - traced_s)
-        first = loop.calls
-        enqueue_s = loop.enqueue_s / first if first else None
-        act = torch.profiler.ProfilerActivity
-        prof = torch.profiler.profile(activities=[act.CUDA if cuda else act.CPU])
-        prof.start()
-        tp = time.perf_counter()
-        loop.run(tp + traced_s, min_calls)
-        sync()
-        window_s = time.perf_counter() - tp
-        prof.stop()
-    sync()
-    wall = time.perf_counter() - t0
+    wall, prof, marked, window_s = timed_window(
+        loop.run, seconds, trace, min_calls, cuda, lambda: (loop.calls, loop.enqueue_s))
+    first, enqueued = marked or (0, 0.0)
+    enqueue_s = enqueued / first if first else None
     launches = launch_count() - launches0
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
@@ -289,32 +282,75 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     checks, failed = check(cell, seed, pool, got, prog_keys, device)
     correct = all(c["value"] <= c["limit"] for c in checks.values())
-    metrics, extra = {}, {}
-    units = cell.units
-    if not trace:
-        gbytes = 4 * sum(live[b] for b in loop.batches) / 1e9
-        values = {"hash_GBps": gbytes / wall, "setup_s": setup_s}
-        metrics = {k: {"value": values[k], "unit": units[k]}
-                   for k in cell.end_to_end}
-    else:
-        tr_ = devtrace.read(prof, loop.batches[first:], window_s, kind)
+    trace_ = ctx = None
+    if trace:
+        trace_ = devtrace.read(prof, loop.batches[first:], window_s, kind)
         ctx = Context(pool.lengths_host, N, K, enqueue_s)
-        for name in cell.per_layer:
-            v = reader(name)(tr_, ctx)
-            if v is not None:
-                metrics[name] = {"value": v, "unit": units[name]}
-        extra = {"busy_s": tr_.busy_s(), "window_s": window_s}
+    gbytes = 4 * sum(live[b] for b in loop.batches) / 1e9
     print(f"{cell.name} seed {seed}: {loop.calls} calls in {wall:.6f} s "
           f"(engine dispatches {launches}); enqueue mean "
           f"{1e6 * loop.enqueue_s / max(1, loop.calls):.3f} us; setup "
           f"{setup_s:.6f} s ({phases}); {kind}", file=sys.stderr)
-    result = {"correct": correct, "attempted": loop.calls, "failed": failed,
+    return result_line(cell, correct, loop.calls, failed, checks, device, peak,
+                       kind, {"hash_GBps": gbytes / wall, "setup_s": setup_s},
+                       trace_, ctx)
+
+
+def timed_window(advance, seconds: float, trace: bool, min_calls: int, cuda: bool,
+                 mark=lambda: None) -> tuple:
+    """The measured window. `advance(deadline, at_least)` works until the
+    deadline has passed and `at_least` calls or steps are made, and returns
+    once all it started have ended. Untraced, one stretch of `seconds`;
+    traced, the profiler records the card's activity alone over the last
+    `TRACE_SECONDS` (or the second half, where shorter), and `mark()` is
+    read where it starts. -> (wall seconds, profiler or None, `mark()`'s
+    value, the traced window's seconds)."""
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    prof = marked = window_s = None
+    if not trace:
+        advance(t0 + seconds, min_calls)
+    else:
+        traced_s = min(TRACE_SECONDS, seconds / 2)
+        advance(t0 + seconds - traced_s, 0)
+        marked = mark()
+        act = torch.profiler.ProfilerActivity
+        prof = torch.profiler.profile(activities=[act.CUDA if cuda else act.CPU])
+        prof.start()
+        tp = time.perf_counter()
+        advance(tp + traced_s, min_calls)
+        sync()
+        window_s = time.perf_counter() - tp
+        prof.stop()
+    sync()
+    return time.perf_counter() - t0, prof, marked, window_s
+
+
+def result_line(cell: Cell, correct: bool, attempted: int, failed: int, checks: dict,
+                device, peak: int, kind: str, values: dict, trace=None,
+                ctx=None) -> dict:
+    """The result line's object. Untraced, the cell's end-to-end metrics
+    found in `values`; traced (`trace`: a `devtrace.Trace`), its per-layer
+    metrics, each read by its reader with `ctx`, the device's busy and
+    window seconds and the breakdown."""
+    cuda = device.type == "cuda"
+    units, metrics, extra = cell.units, {}, {}
+    if trace is None:
+        metrics = {k: {"value": values[k], "unit": units[k]}
+                   for k in cell.end_to_end if k in values}
+    else:
+        for name in cell.per_layer:
+            v = reader(name)(trace, ctx)
+            if v is not None:
+                metrics[name] = {"value": v, "unit": units[name]}
+        extra = {"busy_s": trace.busy_s(), "window_s": trace.window_s}
+    result = {"correct": correct, "attempted": attempted, "failed": failed,
               "metrics": metrics,
               "device": {"platform": "gpu" if cuda else device.type,
                          "kind": kind, "count": 1 if cuda else 0,
                          "memory_peak_bytes": int(peak), **extra}}
-    if trace:
-        result["breakdown"] = tr_.breakdown()
+    if trace is not None:
+        result["breakdown"] = trace.breakdown()
     result["checks"] = checks
     return result
 
